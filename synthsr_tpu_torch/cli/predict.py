@@ -1,0 +1,183 @@
+"""All-purpose SynthSR predict CLI on PyTorch: arbitrary MRI/CT -> synthetic
+1 mm MP-RAGE.  The port of ``synthsr_tpu/cli/predict.py``.
+
+Same flags, file/directory batch semantics and ``_SynthSR`` output naming,
+same math: CT clip to [0, 80] HU, resample to 1 mm (on the device, as
+per-axis matrices), RAS alignment, min-max normalisation, centre zero-pad to
+a multiple of 32, flip-averaged TTA, output ``clip(255·(y0+y1)/2, 0, 128)``,
+unpad.
+
+The network runs on CUDA unless ``--cpu`` (or ``device="cpu"``) is given; a
+missing GPU raises.  ``--fast_inference`` (default on) runs the fast forward
+(``models/unet_cf.py``): its convs launch the hand-written kernels on a card
+and their plain versions on the CPU.  ``off`` selects the plain float32
+``UNet3D.forward``, a test reference that is refused on a CUDA device.  The
+flip-TTA pass of the fast forward reuses it with D-flipped conv kernels
+(no input or output flip); the plain pass flips input and output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from synthsr_tpu.cli._pipeline import run_pipelined
+from synthsr_tpu.cli.predict import DEFAULT_MODEL, _prepare_paths
+from synthsr_tpu.io.volume import align_volume_to_ref, load_volume, save_volume
+from synthsr_tpu.ops.host_matrices import resample_volume_matrices
+
+from ..models.unet import synthsr_unet
+from ..models.unet_cf import fast_unet_forward, flip_d_state_dict, pack_unet
+from ..models.weights import load_unet_weights
+from ..ops.linops import apply_axis_ops
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def build_arg_parser():
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("path_images",
+                   help="image or folder of images to super-resolve / synthesize")
+    p.add_argument("path_predictions",
+                   help="output path; same type as path_images (file or folder)")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU instead of the GPU")
+    p.add_argument("--threads", type=int, default=1,
+                   help="CPU threads when running with --cpu")
+    p.add_argument("--ct", action="store_true", help="input is a CT scan")
+    p.add_argument("--model", default=None,
+                   help="model weights (.h5 Keras or a torch.save'd state dict .pt)")
+    p.add_argument("--disable_flipping", action="store_true",
+                   help="disable flip test-time augmentation")
+    p.add_argument("--fast_inference", choices=["auto", "on", "off"], default="auto",
+                   help="fast forward through the conv kernels (auto = on); off = "
+                        "plain float32 reference forward, CPU only")
+    return p
+
+
+def _device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass --cpu (device='cpu') "
+                               "to run on the CPU")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class Predictor:
+    """The predict pipeline on one device, weights loaded and packed once."""
+
+    def __init__(self, model_path=None, disable_flipping=False, ct=False,
+                 compute_dtype="bfloat16", n_channels=1, fast_inference="auto",
+                 device=None):
+        self.device = _device(device)
+        self.dtype = _DTYPES[str(compute_dtype)]
+        if fast_inference not in ("auto", "on", "off"):
+            raise ValueError(f"fast_inference must be auto, on or off, got {fast_inference!r}")
+        self.use_fast = fast_inference != "off"
+        if not self.use_fast and self.device.type == "cuda":
+            raise ValueError("fast_inference='off' (the plain reference forward) is "
+                             "refused on a CUDA device")
+        self.disable_flipping = disable_flipping
+        self.ct = ct
+        self.model = synthsr_unet(nb_channels=n_channels)
+        load_unet_weights(self.model, DEFAULT_MODEL if model_path is None else model_path)
+        self.model.to(self.device).eval()
+        if self.use_fast:
+            self.packed = pack_unet(self.model, self.dtype)
+            self.packed_flip = None
+            if not disable_flipping:
+                flipped = synthsr_unet(nb_channels=n_channels)
+                flipped.load_state_dict(flip_d_state_dict(self.model.state_dict()))
+                self.packed_flip = pack_unet(flipped.to(self.device).eval(), self.dtype)
+
+    @torch.no_grad()
+    def network(self, x: torch.Tensor) -> torch.Tensor:
+        """(1, C, D, H, W) float32 on the device -> the TTA-averaged network
+        output (1, 1, D, H, W) float32, before scaling and clipping."""
+        if self.use_fast:
+            y0 = fast_unet_forward(self.model, x, self.dtype, self.packed)
+            if self.disable_flipping:
+                return y0
+            y1 = fast_unet_forward(self.model, x, self.dtype, self.packed_flip)
+        else:
+            y0 = self.model(x)
+            if self.disable_flipping:
+                return y0
+            y1 = torch.flip(self.model(torch.flip(x, [2])), [2])
+        return 0.5 * y0 + 0.5 * y1
+
+    def prepare(self, im: np.ndarray, aff: np.ndarray):
+        """CT clip, device resample to 1 mm, RAS alignment, min-max
+        normalisation and centre pad to a multiple of 32.
+
+        Returns (x (1, 1, D, H, W) float32 on the device, crop slices, aff)."""
+        im = np.asarray(im, np.float32)
+        if self.ct:
+            im = np.clip(im, 0.0, 80.0)
+        mats, new_shape, aff = resample_volume_matrices(im.shape, aff, [1.0, 1.0, 1.0])
+        dev = apply_axis_ops(torch.from_numpy(im).to(self.device),
+                             [torch.from_numpy(m).to(self.device) for m in mats])
+        im = dev.cpu().numpy().reshape(new_shape)
+        im, aff2 = align_volume_to_ref(im, aff, aff_ref=np.eye(4), return_aff=True,
+                                       n_dims=3)
+        im = im - np.min(im)
+        mx = np.max(im)
+        if mx > 0:
+            im = im / mx
+        shape = np.array(im.shape)
+        padded = (np.ceil(shape / 32.0) * 32).astype(int)
+        lo = np.floor((padded - shape) / 2).astype(int)
+        crop = tuple(slice(a, a + s) for a, s in zip(lo, shape))
+        s = np.zeros((1, 1, *padded), np.float32)
+        s[(0, 0) + crop] = im
+        return torch.from_numpy(s).to(self.device), crop, aff2
+
+    def predict_volume(self, im: np.ndarray, aff: np.ndarray):
+        """Run the full pipeline on one volume; returns (pred, aff)."""
+        x, crop, aff2 = self.prepare(im, aff)
+        pred = torch.clamp(255.0 * self.network(x), 0.0, 128.0)
+        return pred[0, 0].cpu().numpy()[crop], aff2
+
+    def predict_file(self, path_in: str, path_out: str):
+        im, aff, _ = load_volume(path_in, im_only=False, dtype="float")
+        pred, aff2 = self.predict_volume(im, aff)
+        save_volume(pred, aff2, None, path_out)
+
+
+def run_batch(predictor: Predictor, images, outs, prefetch: int = 2,
+              verbose: bool = False):
+    """Directory batch mode on the JAX package's three-stage pipeline
+    (``synthsr_tpu/cli/_pipeline.py``: loader thread ahead, writer behind)."""
+    def loads():
+        for pin in images:
+            yield load_volume(pin, im_only=False, dtype="float")
+
+    run_pipelined(loads(), lambda item: predictor.predict_volume(item[0], item[1]),
+                  outs, prefetch=prefetch, verbose=verbose,
+                  describe=lambda idx: images[idx])
+
+
+def main(argv=None):
+    args = build_arg_parser().parse_args(argv)
+    device = None
+    if args.cpu:
+        print("using CPU backend")
+        torch.set_num_threads(args.threads)
+        device = "cpu"
+    images, outs = _prepare_paths(args.path_images, args.path_predictions)
+    print(f"Found {len(images)} images")
+    predictor = Predictor(model_path=args.model, disable_flipping=args.disable_flipping,
+                          ct=args.ct, fast_inference=args.fast_inference, device=device)
+    run_batch(predictor, images, outs, verbose=True)
+    print("\nAll done!\n")
+
+
+if __name__ == "__main__":
+    sys.exit(main())
