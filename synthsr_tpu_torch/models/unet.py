@@ -8,10 +8,12 @@ NCDHW layout, so weights move between the packages through
 (tests/test_unet.py:147-166): skips tap the pre-BN conv output, BatchNorm uses
 eps 1e-3, max-pool 2, nearest x2 upsampling, decoder input ``[skip, up]``,
 linear or softmax head.  It is the reference for the fast forward
-(``models/unet_cf.py``), which serves.
+(``models/unet_cf.py``), which serves.  ``forward_train`` is the plain float32
+train-mode composition, flax's ``apply(train=True, mutable=["batch_stats"])``,
+and the reference for the fast train forward (``models/unet_cf_train.py``).
 
-Only the options of the shipped configuration exist here; residual levels,
-dilation, dropout and ``layer_nb_feats`` wait for the training port.
+Only the options of the shipped configurations exist here; residual levels,
+dilation, dropout and ``layer_nb_feats`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ SYNTHSR_CONFIG = dict(nb_features=24, nb_levels=5, conv_size=3, nb_labels=1,
                       feat_mult=2, nb_conv_per_level=2, activation="elu",
                       final_pred_activation="linear")
 
-BN_EPS = 1e-3  # Keras BatchNormalization default
+BN_EPS = 1e-3  # Keras BatchNormalization defaults
+BN_MOMENTUM = 0.99
 
 
 def unet_layers(cfg: dict, in_channels: int):
@@ -57,6 +60,24 @@ def upsample2(x: torch.Tensor) -> torch.Tensor:
     *lead, d, h, w = x.shape
     return x[..., :, None, :, None, :, None].expand(*lead, d, 2, h, 2, w, 2) \
         .reshape(*lead, 2 * d, 2 * h, 2 * w)
+
+
+def bn_batch_stats(xs, dims):
+    """Float32 batch statistics as flax's BatchNorm takes them in train mode:
+    the mean over ``dims`` of each tensor in ``xs`` (the examples), averaged
+    over ``xs``, and the fast variance ``max(0, E[x²] - E[x]²)``
+    (unet_cf_train.py:121-141).  torch's own train-mode BatchNorm uses the
+    two-pass variance and an unbiased running update, and would drift."""
+    n = len(xs)
+    mu = sum(x.to(torch.float32).mean(dims) for x in xs) / n
+    mu2 = sum(torch.square(x.to(torch.float32)).mean(dims) for x in xs) / n
+    return mu, torch.clamp(mu2 - torch.square(mu), min=0.0)
+
+
+def bn_running_update(bn, mu, var):
+    """The new (running_mean, running_var), momentum 0.99, no gradient."""
+    return (BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mu.detach(),
+            BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var.detach())
 
 
 def check_poolable(shape, nb_levels: int):
@@ -115,6 +136,39 @@ class UNet3D(nn.Module):
         bn = getattr(self, name)
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                             training=False, eps=bn.eps)
+
+    def _bn_train(self, name, x, new_stats):
+        bn = getattr(self, name)
+        mu, var = bn_batch_stats([x], (0, 2, 3, 4))
+        new_stats[name] = bn_running_update(bn, mu, var)
+        shape = (1, -1, 1, 1, 1)
+        return (x - mu.reshape(shape)) * torch.rsqrt(var + bn.eps).reshape(shape) \
+            * bn.weight.reshape(shape) + bn.bias.reshape(shape)
+
+    def forward_train(self, x: torch.Tensor):
+        """Train mode, float32: (N, C, D, H, W) -> ((N, nb_labels, D, H, W),
+        {bn name: (new running_mean, new running_var)}).  BatchNorm normalises
+        with the batch's statistics; the module's buffers are not written."""
+        check_poolable(x.shape[2:], self.nb_levels)
+        nl, ncpl = self.nb_levels, self.nb_conv_per_level
+        x = x.to(torch.float32)
+        skips, new_stats = [], {}
+        for level in range(nl):
+            for conv in range(ncpl):
+                x = self._act(getattr(self, f"conv_downarm_{level}_{conv}")(x))
+            skips.append(x)
+            x = self._bn_train(f"bn_down_{level}", x, new_stats)
+            if level < nl - 1:
+                x = F.max_pool3d(x, 2)
+        for level in range(nl - 1):
+            x = torch.cat([skips[nl - 2 - level], upsample2(x)], 1)
+            for conv in range(ncpl):
+                x = self._act(getattr(self, f"conv_uparm_{nl + level}_{conv}")(x))
+            x = self._bn_train(f"bn_up_{level}", x, new_stats)
+        x = self.likelihood(x)
+        if self.config["final_pred_activation"] == "softmax":
+            x = torch.softmax(x, dim=1)
+        return x, new_stats
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, C, D, H, W) -> (N, nb_labels, D, H, W), float32, inference."""

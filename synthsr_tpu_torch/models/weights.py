@@ -70,8 +70,9 @@ def random_variables(cfg: dict | None = None, in_channels: int = 1, seed: int = 
     so the full-width 18-conv net keeps O(1) activations and tolerances
     stay meaningful.  The likelihood is scaled so that a 1-label linear head
     predicts about 0.25 +- 0.1, inside the predict CLI's [0, 128] / 255
-    output window."""
-    cfg = dict(SYNTHSR_CONFIG if cfg is None else cfg)
+    output window.  Keys missing from ``cfg`` take the shipped configuration's
+    values."""
+    cfg = dict(SYNTHSR_CONFIG, **(cfg or {}))
     rng = np.random.default_rng(seed)
     params, stats = {}, {}
     k = cfg.get("conv_size", 3)

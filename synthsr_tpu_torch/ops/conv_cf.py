@@ -23,6 +23,14 @@ Dispatch, with no fallback: a CPU tensor goes to :func:`conv3d_cf_reference`
 (plain PyTorch); a CUDA tensor launches **H-first** (one source, C_in <= 2, no
 ``accum``, no ``head``; replaces K1) or **H-fwd** (everything else; replaces
 K2, K3 and K4) from ``csrc/conv3d_cf.cu``; any other device raises.
+
+``conv3d_cf_wgrad(x, g)`` is the training backward's weight gradient,
+``dw[dz, dy, dx, ci, co] = sum x[ci, z+dz-1, h+dy-1, w+dx-1] g[co, z, h, w]``
+(zero padding), (3, 3, 3, ci, co) float32, with ``g`` rounded to ``x.dtype``
+first as K6 does (conv_pallas.py:1230).  The same dispatch: the plain
+:func:`conv3d_cf_wgrad_reference` on a CPU tensor, **H-wgrad** from
+``csrc/conv3d_wgrad.cu`` (replaces K6 and K7) on a CUDA tensor.
+
 ``LAUNCHES`` counts kernel launches per kernel, and nothing else.
 """
 
@@ -35,9 +43,11 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-LAUNCHES = {"first": 0, "fwd": 0}
+LAUNCHES = {"first": 0, "fwd": 0, "wgrad": 0}
 
 FWD_CHUNK = 8  # input channels per H-fwd chunk (FWD_CK in csrc/conv3d_cf.cu)
+WGRAD_CHUNK = 8  # input channels per H-wgrad block (WG_CK in csrc/conv3d_wgrad.cu)
+WGRAD_MAX_TILE = 128  # voxels per H-wgrad tile (WG_MAXVOX)
 _ACT_CODES = {None: 0, "elu": 1, "relu": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
@@ -51,6 +61,8 @@ def build_kernels() -> float:
     lib = cuda_build.load(path)
     if lib.conv3d_fwd_chunk() != FWD_CHUNK:
         raise RuntimeError("csrc/conv3d_cf.cu and conv_cf.FWD_CHUNK disagree")
+    if (lib.conv3d_wgrad_chunk(), lib.conv3d_wgrad_max_tile()) != (WGRAD_CHUNK, WGRAD_MAX_TILE):
+        raise RuntimeError("csrc/conv3d_wgrad.cu and conv_cf.WGRAD_* disagree")
     _lib = lib
     return seconds
 
@@ -255,3 +267,74 @@ def _check(lib, err, name):
     if err != 0:
         msg = lib.conv3d_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def _wgrad_operands(x, g):
+    if x.dim() != 4 or g.dim() != 4 or x.shape[1:] != g.shape[1:]:
+        raise ValueError(f"expected x (ci, D, H, W) and g (co, D, H, W), got "
+                         f"{tuple(x.shape)} and {tuple(g.shape)}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"unsupported activation dtype {x.dtype}")
+    if x.device != g.device:
+        raise ValueError(f"x on {x.device}, g on {g.device}")
+    return g.to(x.dtype)
+
+
+def conv3d_cf_wgrad_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The plain version: float32 ``torch.nn.grad.conv3d_weight`` on ``x`` and
+    ``g`` rounded to ``x.dtype``, as DHWIO (3, 3, 3, ci, co)."""
+    g = _wgrad_operands(x, g)
+    dw = torch.nn.grad.conv3d_weight(x.to(torch.float32)[None],
+                                     (g.shape[0], x.shape[0], 3, 3, 3),
+                                     g.to(torch.float32)[None], padding=1)
+    return dw.permute(2, 3, 4, 1, 0).contiguous()
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def wgrad_plan(ci: int, co: int, d: int, h: int, w: int, n_sm: int):
+    """H-wgrad's launch shape: (th, tw, ng, n_split).
+
+    Tiles of th x tw <= WGRAD_MAX_TILE voxels, 8 <= tw <= 32; ``ng`` groups of
+    8 output channels per block (:func:`cout_groups`); the volume's
+    (z-plane, tile) items are split over ``n_split`` blocks per (ci chunk,
+    co tile) so that about eight blocks per SM are launched (registers and
+    shared memory hold six 72-thread blocks per SM; two per SM left the card
+    at 6 TFLOP/s)."""
+    tw = min(32, max(8, _pow2_ceil(w)))
+    th = max(1, min(WGRAD_MAX_TILE // tw, _pow2_ceil(h)))
+    ng = cout_groups(co)
+    items = d * -(-w // tw) * -(-h // th)
+    pairs = -(-ci // WGRAD_CHUNK) * -(-co // (8 * ng))
+    n_split = max(1, min(items, -(-8 * n_sm // pairs)))
+    return th, tw, ng, n_split
+
+
+def conv3d_cf_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(3, 3, 3, ci, co) float32 weight gradient (see the module docstring)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return conv3d_cf_wgrad_reference(x, g)
+    if dev.type != "cuda":
+        raise ValueError(f"conv3d_cf_wgrad runs on CPU (plain) or CUDA (kernel), not {dev}")
+    g = _wgrad_operands(x, g).contiguous()
+    x = x.contiguous()
+    ci, d, h, wd = x.shape
+    co = g.shape[0]
+    th, tw, ng, n_split = wgrad_plan(ci, co, d, h, wd,
+                                     torch.cuda.get_device_properties(dev).multi_processor_count)
+    ci_pad = -(-ci // WGRAD_CHUNK) * WGRAD_CHUNK
+    co_pad = -(-co // (8 * ng)) * (8 * ng)
+    partial = torch.empty((n_split, 27, ci_pad, co_pad), dtype=torch.float32, device=dev)
+    dw = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.conv3d_wgrad_launch(x.data_ptr(), g.data_ptr(), ci, co, d, h, wd, th, tw, ng,
+                                      n_split, partial.data_ptr(), dw.data_ptr(),
+                                      int(x.dtype == torch.bfloat16), stream)
+    _check(lib, err, "H-wgrad")
+    LAUNCHES["wgrad"] += 1
+    return dw

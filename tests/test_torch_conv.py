@@ -122,7 +122,7 @@ def test_cpu_dispatch_is_plain_and_launches_nothing():
     got = conv3d_cf(x, pack_conv(w, torch.float32), activation="elu")
     want = conv3d_cf_reference(x, w, activation="elu")
     assert torch.equal(got, want)
-    assert LAUNCHES == {"first": 0, "fwd": 0}
+    assert LAUNCHES == {"first": 0, "fwd": 0, "wgrad": 0}
     with pytest.raises(ValueError):
         conv3d_cf(x.to("meta"), w.to("meta"))
 

@@ -134,16 +134,20 @@ def test_no_silent_cpu_fallback(tmp_path, weights, monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path, weights):
-    """A 32³ CPU predict through main() in a fresh interpreter leaves jax and
-    flax out of sys.modules."""
+    """A 32³ CPU predict through main() in a fresh interpreter, with every
+    module of the training slice imported too, leaves jax, flax and optax out
+    of sys.modules."""
     _, pt = weights
     pin, pout = tmp_path / "in.nii.gz", tmp_path / "out.nii.gz"
     _make_input(pin, shape=(32, 32, 32), zooms=(1.0, 1.0, 1.0))
     code = textwrap.dedent(f"""
         import sys
         from synthsr_tpu_torch.cli.predict import main
+        import synthsr_tpu_torch.cli.train
+        import synthsr_tpu_torch.ops.blur, synthsr_tpu_torch.ops.interp, synthsr_tpu_torch.ops.losses
+        import synthsr_tpu_torch.synth.brain_generator, synthsr_tpu_torch.train.training
         main([{str(pin)!r}, {str(pout)!r}, "--cpu", "--threads", "2", "--model", {pt!r}])
-        bad = [m for m in ("jax", "flax") if m in sys.modules]
+        bad = [m for m in ("jax", "flax", "optax") if m in sys.modules]
         assert not bad, bad
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
