@@ -1,10 +1,17 @@
 """GPU smoke run of the PyTorch port: builds the hand-written CUDA kernels,
-holds each against its plain PyTorch version at the shapes of the port's two
-main paths, then drives both at full width (24 features, 5 levels, seeded
-random weights and data):
+holds each against its plain PyTorch version (and times the one PyTorch call
+that computes the same function, and the card's bound) at the shapes of the
+port's main paths, then drives each at full width (24 features, 5 levels,
+seeded random weights and data):
 
 - predict: ``synthsr_tpu_torch.cli.predict.main`` with flip TTA over three
   synthetic volumes, and the fast network against the plain float32 forward;
+- predict at a large field of view: ``cli.predict.main`` on a 1 mm CT
+  phantom of 180x250x500 voxels (padded to 192x256x512, the shape whose
+  level-0 24->24 conv only the TPU's blocked kernel K5 served);
+- Hyperfine: ``cli.predict_hyperfine.main`` on two synthetic 1.5x1.5x5 mm
+  T1/T2 pairs, one T2 oblique, and its residual network against the plain
+  float32 forward;
 - train: ``synthsr_tpu_torch.cli.train.main`` at the tutorial-7 configuration
   of ``bench_train.py`` (128³, 4 input channels, bf16) on seeded synthetic
   label maps, 2 epochs x 3 steps then a resume to epoch 3, one step's
@@ -42,6 +49,11 @@ GRAD_BOUND = 5e-2     # relative L2, one train step's bf16 kernel-path gradient 
 LEAF_BOUND = 0.15
 LOSS_BOUND = 1e-2     # relative difference of that step's loss
 WARM_STEPS = 12       # consecutive warm train steps timed with CUDA events
+# the bound: the larger of the operations over the H100 SXM's dense bf16 peak
+# and the bytes (each input read once, each output written once) over its
+# memory rate (NVIDIA's data sheet, at the full 700 W power limit)
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 SOURCE = "synthsr_tpu_torch/csrc/conv3d_cf.cu"
 WGRAD_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad.cu"
 PALLAS = "synthsr_tpu/ops/conv_pallas.py"
@@ -62,6 +74,14 @@ SHAPES = [
     ("[192,384]->192 @32^3 +post", "fwd", (192, 384), 192, (32, 32, 32), "bias+elu+post"),
     ("1->24 @192x224x192", "first", (1,), 24, (192, 224, 192), "bias+elu"),
     ("24->24 @192x224x192", "fwd", (24,), 24, (192, 224, 192), "bias+elu"),
+    # a large field of view: the level-0 convs that K5 served on the TPU,
+    # 24-, 48- and 72-channel sources of 25 M voxels (a 72-channel source's
+    # byte offsets pass 2^31)
+    ("1->24 @192x256x512", "first", (1,), 24, (192, 256, 512), "bias+elu"),
+    ("24->24 @192x256x512 (K5)", "fwd", (24,), 24, (192, 256, 512), "bias+elu"),
+    ("[24,48]->24 @192x256x512", "fwd", (24, 48), 24, (192, 256, 512), "bias+elu"),
+    ("72->24 @192x256x512", "fwd", (72,), 24, (192, 256, 512), "bias+elu"),
+    ("24->24 @64x384x384 (K5)", "fwd", (24,), 24, (64, 384, 384), "bias+elu"),
     # the train step's input-gradient convs: flipped, transposed weights, no epilogue
     ("24->72 @128^3 (dx)", "fwd", (24,), 72, (128, 128, 128), "dx"),
     ("48->144 @64^3 (dx)", "fwd", (48,), 144, (64, 64, 64), "dx"),
@@ -77,6 +97,12 @@ WGRAD_SHAPES = [(4, 24, 128), (24, 24, 128), (48, 24, 128), (48, 48, 64), (96, 4
 VOLUMES = [("t1_256.nii.gz", (256, 256, 128), (1.0, 1.0, 2.0), False),
            ("flair_clinical.nii.gz", (176, 208, 36), (1.0, 1.0, 5.0), False),
            ("head_ct.nii.gz", (192, 192, 64), (0.9, 0.9, 2.5), True)]
+# a 1 mm head-and-neck CT with 500 mm cranio-caudal coverage: pads to 192x256x512
+LARGE_FOV = ("head_neck_ct.nii", (180, 250, 500), (1.0, 1.0, 1.0))
+# Hyperfine T1/T2 pairs at 1.5 x 1.5 x 5 mm: (T1 shape, T2 rotated about z, degrees)
+HYPERFINE = [((128, 160, 32), 0.0), ((128, 160, 32), 10.0)]
+PREDICT_LAUNCHES = {"first": 2, "fwd": 34, "wgrad": 0}   # per volume, flip TTA
+HYPERFINE_LAUNCHES = {"first": 1, "fwd": 17, "wgrad": 0}  # per pair, one forward
 
 
 def require(ok, what):
@@ -86,6 +112,12 @@ def require(ok, what):
 
 def phase(name):
     print(f"== {name}", flush=True)
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def cuda_ms(fn, reps):
@@ -124,6 +156,7 @@ def check_kernels(conv_cf, gen):
                                       randn(cout, scale=0.1)])
         if "head" in fused:
             kw["head"] = (randn(cout, scale=cout ** -0.5), torch.tensor(0.25, device=dev))
+        lib = library_conv(conv_cf, kw)
         before = dict(conv_cf.LAUNCHES)
         got = conv_cf.conv3d_cf(**kw)
         torch.cuda.synchronize()
@@ -134,18 +167,38 @@ def check_kernels(conv_cf, gen):
         require(got.shape == want.shape and got.dtype == want.dtype, name)
         err = float((got.float() - want.float()).abs().max())
         rel = err / float(want.float().abs().max())
-        bound = HEAD_BOUND if "head" in fused else KERNEL_BOUND
+        tol = HEAD_BOUND if "head" in fused else KERNEL_BOUND
         reps = 3 if cin * np.prod(spatial) > 2 ** 28 else 10
         ms = cuda_ms(lambda: conv_cf.conv3d_cf(**kw), reps)
         plain_ms = cuda_ms(lambda: conv_cf.conv3d_cf_reference(**kw), reps)
+        library_ms = cuda_ms(lib, reps)
+        vox = int(np.prod(spatial))
+        out_bytes = 4 * vox if "head" in fused else 2 * cout * vox
+        bound_ms, bound_by = bound(2 * 27 * cin * cout * vox,
+                                   2 * cin * vox + 4 * 27 * cin * cout + out_bytes)
         print(f"  {kernel:5s} {name:28s} {fused:20s} max_abs_err {err:.3e} rel {rel:.3e} "
-              f"(bound {bound:.0e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
-        require(np.isfinite(rel) and rel <= bound, (name, rel, bound))
+              f"(tolerance {tol:.0e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+              f"library {library_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+        require(np.isfinite(rel) and rel <= tol, (name, rel, tol))
         results.append(dict(kernel=kernel, shape=name, fused=fused, max_abs_err=err,
-                            rel_err=rel, ms=ms, plain_ms=plain_ms))
-        del srcs, kw, got, want
+                            rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by))
+        del srcs, kw, got, want, lib
         torch.cuda.empty_cache()
     return results
+
+
+def library_conv(conv_cf, kw):
+    """One cuDNN call on the same bf16 operands: F.conv3d of the concatenated
+    sources (concatenated here, outside the timing) with the bias; the
+    activation, ``post`` and ``head`` epilogues are not part of it."""
+    srcs = kw["x"] if isinstance(kw["x"], list) else [kw["x"]]
+    x = torch.cat(srcs, 0)[None] if len(srcs) > 1 else srcs[0][None]
+    w = kw["w"].w if isinstance(kw["w"], conv_cf.PackedConv) else kw["w"]
+    w = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous()
+    b = kw.get("bias")
+    b = None if b is None else b.to(torch.bfloat16)
+    return lambda: torch.nn.functional.conv3d(x, w, b, padding=1)
 
 
 def check_wgrad(conv_cf, gen):
@@ -170,14 +223,19 @@ def check_wgrad(conv_cf, gen):
         same = bool(torch.equal(got, again))
         ms = cuda_ms(lambda: conv_cf.conv3d_cf_wgrad(x, g), 5)
         plain_ms = cuda_ms(lambda: conv_cf.conv3d_cf_wgrad_reference(x, g), 5)
-        tflops = 2 * 27 * ci * co * n ** 3 / ms / 1e9
-        print(f"  wgrad {name:18s} max_abs_err {err:.3e} rel {rel:.3e} (bound "
+        library_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+            x[None], (co, ci, 3, 3, 3), g[None], padding=1), 5)
+        flops = 2 * 27 * ci * co * n ** 3
+        bound_ms, bound_by = bound(flops, 2 * (ci + co) * n ** 3 + 4 * 27 * ci * co)
+        print(f"  wgrad {name:18s} max_abs_err {err:.3e} rel {rel:.3e} (tolerance "
               f"{WGRAD_BOUND:.0e})  bit-equal repeat {same}  kernel {ms:.3f} ms "
-              f"({tflops:.1f} TFLOP/s)  plain {plain_ms:.3f} ms", flush=True)
+              f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.3f} ms  library "
+              f"{library_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})", flush=True)
         require(np.isfinite(rel) and rel <= WGRAD_BOUND, (name, rel))
         require(same, (name, "repeat differs"))
         results.append(dict(kernel="wgrad", shape=name, fused="", max_abs_err=err,
-                            rel_err=rel, ms=ms, plain_ms=plain_ms))
+                            rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by))
         del x, g, got, again, want
     torch.cuda.empty_cache()
     return results
@@ -187,7 +245,7 @@ def make_train_data(root, rng):
     """Seeded synthetic training inputs: three 160³ label maps of nested
     ellipsoids split into left and right hemispheres (FreeSurfer label ids),
     the generation label list and 3-channel normal GMM priors."""
-    from synthsr_tpu.io.volume import save_volume
+    from synthsr_tpu_torch.io.volume import save_volume
 
     left, right = [2, 3, 4, 17], [41, 42, 43, 53]
     labels = np.array([0, 14, 24] + left + right, np.int32)
@@ -284,9 +342,9 @@ def gradient_check(trained, root):
     from synthsr_tpu_torch.synth.sampling import make_gmm_sampler
     from synthsr_tpu_torch.train.training import forward_loss, generate_batch, make_train_step
     from synthsr_tpu_torch.utils.finite_guard import adam_init
-    from synthsr_tpu.io.labels import get_list_labels
-    from synthsr_tpu.io.volume import load_volume
-    from synthsr_tpu.utils.misc import get_padding_margin
+    from synthsr_tpu_torch.io.labels import get_list_labels
+    from synthsr_tpu_torch.io.volume import load_volume
+    from synthsr_tpu_torch.utils.misc import get_padding_margin
 
     phase("one train step: kernel path (bf16) vs plain float32 autograd")
     dev = torch.device("cuda")
@@ -419,6 +477,170 @@ def phantom(shape, zooms, ct, rng):
     return vol
 
 
+def large_fov_phase(predict, conv_cf, weights, tmp, rng):
+    """``predict.main`` on a 1 mm CT phantom that pads to 192x256x512, then
+    its warm prepare, network and predict_volume times, peak memory, and the
+    fast TTA network against the plain float32 forward."""
+    phase("main path: predict at a large field of view (1 mm CT, 180x250x500)")
+    fname, shape, zooms = LARGE_FOV
+    vol = phantom(shape, zooms, True, rng)
+    aff = np.diag(list(zooms) + [1.0])
+    path_in = os.path.join(tmp, fname)
+    path_out = os.path.join(tmp, fname.replace(".nii", "_SynthSR.nii"))
+    predict.save_volume(vol, aff, None, path_in)
+    conv_cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    predict.main([path_in, path_out, "--ct", "--model", weights])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = dict(conv_cf.LAUNCHES)
+    print(f"  main(): 1 volume in {main_s:.2f} s (incl. NIfTI I/O, weight load); "
+          f"launches {launches}")
+    require(launches == PREDICT_LAUNCHES, launches)
+    pred, aff_out, _ = predict.load_volume(path_out, im_only=False)
+    require(pred.shape == shape, (pred.shape, shape))
+    require(np.allclose(aff_out[:3, :3], np.eye(3), atol=1e-6), aff_out)
+    require(np.all(np.isfinite(pred)) and pred.min() >= 0 and pred.max() <= 128, "range")
+    require(0 < pred.mean() < 128, pred.mean())
+    print(f"  out {pred.shape} 1 mm RAS, range [{pred.min():.2f}, {pred.max():.2f}], "
+          f"mean {pred.mean():.2f}")
+    del pred
+
+    ct = predict.Predictor(model_path=weights, ct=True)
+    ct.predict_volume(vol, aff)  # unmeasured warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, _, _ = ct.prepare(vol, aff)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    padded = tuple(x.shape[2:])
+    require(padded == tuple(-(-s // 32) * 32 for s in shape), padded)
+    net_ms = cuda_ms(lambda: ct.network(x), 2)
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ct.predict_volume(vol, aff)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    # where one warm predict_volume's time goes: device time by kind over its wall
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ct.predict_volume(vol, aff)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"H-fwd": "conv3d_fwd_kernel", "H-first": "conv3d_first_kernel",
+             "copy host->device": "Memcpy HtoD", "copy device->host": "Memcpy DtoH"}
+    device_ms = dict.fromkeys([*kinds, "other"], 0.0)
+    for ev in prof.key_averages():
+        ms = (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+        device_ms[next((k for k, tag in kinds.items() if tag in ev.key), "other")] += ms
+    idle = 1.0 - sum(device_ms.values()) / wall_ms
+    print(f"  profiled predict_volume: wall {wall_ms:.1f} ms, device ms "
+          f"{ {k: round(v, 3) for k, v in device_ms.items()} }, device idle {idle:.1%}")
+    with torch.no_grad():
+        fast = ct.network(x)
+        plain = 0.5 * ct.model(x) + 0.5 * torch.flip(ct.model(torch.flip(x, [2])), [2])
+    rel = float((fast - plain).norm() / plain.norm())
+    max_out = float(255 * (fast - plain).abs().max())
+    print(f"  padded {padded}  prepare {prepare_s:.3f} s  predict_volume {secs} s  network "
+          f"(2 forwards) {net_ms:.1f} ms  peak allocated {peak / 2 ** 30:.2f} GiB  vs plain: "
+          f"relative L2 {rel:.3e} (bound {NET_BOUND:.0e}), max |diff| x255 = {max_out:.3f}")
+    require(np.isfinite(rel) and rel <= NET_BOUND, rel)
+    del x, fast, plain, ct
+    torch.cuda.empty_cache()
+    return {"launches": launches,
+            "summary": dict(padded=list(padded), main_seconds=main_s, prepare_s=prepare_s,
+                            predict_volume_s=secs, network_tta_ms=net_ms,
+                            peak_allocated_bytes=peak, net_rel_l2=rel,
+                            profiled_wall_ms=wall_ms, device_ms=device_ms, device_idle=idle)}
+
+
+def rotated_z(zooms, shape, degrees):
+    """An affine of voxel size ``zooms`` rotated about z by ``degrees`` around
+    the centre of a ``shape`` volume on the axis-aligned grid of the same
+    voxel size."""
+    c, s = np.cos(np.deg2rad(degrees)), np.sin(np.deg2rad(degrees))
+    lin = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]) @ np.diag(zooms)
+    centre = (np.array(shape) - 1) / 2
+    aff = np.eye(4)
+    aff[:3, :3] = lin
+    aff[:3, 3] = np.diag(zooms) @ centre - lin @ centre
+    return aff
+
+
+def hyperfine_phase(conv_cf, tmp, rng):
+    """``predict_hyperfine.main`` on synthetic T1/T2 pairs (one T2 oblique),
+    then per pair the warm network and predict_pair times and the residual
+    network against the plain float32 forward."""
+    from synthsr_tpu_torch.cli import predict_hyperfine
+    from synthsr_tpu_torch.models.weights import random_variables, variables_to_state_dict
+
+    phase("main path: Hyperfine (T1 + T2 at 1.5x1.5x5 mm, one T2 oblique)")
+    weights = os.path.join(tmp, "hyperfine.pt")
+    torch.save(variables_to_state_dict(random_variables(in_channels=2, seed=1)), weights)
+    dirs = [os.path.join(tmp, d) for d in ("t1", "t2", "hyperfine_out")]
+    for d in dirs[:2]:
+        os.makedirs(d)
+    zooms = (1.5, 1.5, 5.0)
+    pairs = []
+    for i, (shape, degrees) in enumerate(HYPERFINE):
+        aff1 = np.diag(list(zooms) + [1.0])
+        aff2 = rotated_z(zooms, shape, degrees)
+        t1, t2 = phantom(shape, zooms, False, rng), phantom(shape, zooms, False, rng)
+        predict_hyperfine.save_volume(t1, aff1, None, os.path.join(dirs[0], f"pair{i}.nii.gz"))
+        predict_hyperfine.save_volume(t2, aff2, None, os.path.join(dirs[1], f"pair{i}.nii.gz"))
+        pairs.append((t1, aff1, t2, aff2, shape, degrees))
+    conv_cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    predict_hyperfine.main(dirs + ["--model", weights])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = dict(conv_cf.LAUNCHES)
+    n = len(HYPERFINE)
+    print(f"  main(): {n} pairs in {main_s:.2f} s (incl. NIfTI I/O, weight load); "
+          f"launches {launches}")
+    require(launches == {k: v * n for k, v in HYPERFINE_LAUNCHES.items()}, launches)
+    for i, (_, _, _, _, shape, _) in enumerate(pairs):
+        out = os.path.join(dirs[2], f"pair{i}_SynthSR.nii.gz")
+        pred, aff, _ = predict_hyperfine.load_volume(out, im_only=False)
+        want = tuple(int(np.ceil(s * z)) for s, z in zip(shape, zooms))
+        require(pred.shape == want, (out, pred.shape, want))
+        require(np.allclose(aff[:3, :3], np.eye(3), atol=1e-6), (out, aff))
+        require(np.all(np.isfinite(pred)) and pred.min() >= 0, out)
+        print(f"  pair{i}: out {pred.shape} 1 mm RAS, range [{pred.min():.2f}, "
+              f"{pred.max():.2f}], mean {pred.mean():.2f}")
+
+    warm = predict_hyperfine.HyperfinePredictor(model_path=weights)
+    summary = dict(main_seconds=main_s, pairs=[])
+    for t1, aff1, t2, aff2, _, degrees in pairs:
+        warm.predict_pair(t1, aff1, t2, aff2)  # unmeasured warm-up
+        x = warm.prepare(t1, aff1, t2, aff2)[0]
+        net_ms = cuda_ms(lambda: warm.network(x), 3)
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            warm.predict_pair(t1, aff1, t2, aff2)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        with torch.no_grad():
+            fast = warm.network(x)
+            plain = warm.model(x)
+        rel = float((fast - plain).norm() / plain.norm())
+        print(f"  T2 rotated {degrees:g} deg: padded {tuple(x.shape[2:])}  predict_pair {secs} s"
+              f"  network {net_ms:.1f} ms  residual vs plain: relative L2 {rel:.3e} "
+              f"(bound {NET_BOUND:.0e})")
+        require(np.isfinite(rel) and rel <= NET_BOUND, (degrees, rel))
+        summary["pairs"].append(dict(t2_degrees=degrees, padded=list(x.shape[2:]),
+                                     predict_pair_s=secs, network_ms=net_ms, net_rel_l2=rel))
+        del x, fast, plain
+    return {"launches": launches, "summary": summary}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -485,7 +707,7 @@ def main():
         n = len(VOLUMES)
         print(f"  main(): {n} volumes in {main_s:.2f} s (incl. NIfTI I/O, weight load); "
               f"launches {launches}; peak allocated {peak / 2 ** 30:.2f} GiB")
-        require(launches == {"first": 2 * n, "fwd": 34 * n, "wgrad": 0}, launches)
+        require(launches == {k: v * n for k, v in PREDICT_LAUNCHES.items()}, launches)
 
         for fname, (_, _, _, shape, zooms) in inputs.items():
             out = os.path.join(out_dir, fname.replace(".nii.gz", "_SynthSR.nii.gz"))
@@ -523,14 +745,21 @@ def main():
                   f"(bound {NET_BOUND:.0e}), max |diff| x255 = {max_out:.3f}")
             require(np.isfinite(rel) and rel <= NET_BOUND, (fname, rel))
             del x, fast, plain
+        del warm
+        torch.cuda.empty_cache()
+
+        large_fov = large_fov_phase(predict, conv_cf, weights, tmp, rng)
+        hyperfine = hyperfine_phase(conv_cf, tmp, rng)
 
     train = train_phase(conv_cf, rng)
-    path_launches = {"predict": launches, "train": train["launches"]}
+    path_launches = {"predict": launches, "predict_large_fov": large_fov["launches"],
+                     "hyperfine": hyperfine["launches"], "train": train["launches"]}
 
     kernels = []
     for kernel, source, replaces, also in (
             ("first", SOURCE, f"{PALLAS}:569", []),
-            ("fwd", SOURCE, f"{PALLAS}:270", [f"{PALLAS}:920", f"{PALLAS}:1297"]),
+            ("fwd", SOURCE, f"{PALLAS}:270", [f"{PALLAS}:920", f"{PALLAS}:1297",
+                                              f"{PALLAS}:127"]),
             ("wgrad", WGRAD_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"])):
         mine = [c for c in checks if c["kernel"] == kernel]
         timed = next(c for c in mine if c["shape"] == TIMED[kernel])
@@ -539,11 +768,14 @@ def main():
             also_replaces=also, launches=sum(v[kernel] for v in path_launches.values()),
             launches_by_path={p: v[kernel] for p, v in path_launches.items()},
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=timed["ms"],
-            plain_ms=timed["plain_ms"], timed_shape=timed["shape"],
-            checks=[{k: c[k] for k in ("shape", "fused", "rel_err", "ms", "plain_ms")}
+            plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
+            library_ms=timed["library_ms"], timed_shape=timed["shape"],
+            checks=[{k: c[k] for k in ("shape", "fused", "rel_err", "ms", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by")}
                     for c in mine]))
     print(json.dumps({"timings": timings, "main_seconds": main_s,
-                      "peak_allocated_bytes": peak, "train": train["summary"]}))
+                      "peak_allocated_bytes": peak, "large_fov": large_fov["summary"],
+                      "hyperfine": hyperfine["summary"], "train": train["summary"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,29 +1,42 @@
 """synthsr_tpu_torch — the PyTorch / CUDA port of ``synthsr_tpu`` for NVIDIA
 Hopper (H100).
 
-This package covers the predict path: the 24-feature, 5-level U-Net with
-flip TTA.  It imports ``torch`` and never ``jax`` or ``flax``; the jax-free
-host modules of ``synthsr_tpu`` (NIfTI I/O, host resample matrices, Keras .h5
-import, the threaded batch pipeline) are imported, not copied.
+This package covers the predict paths (the all-purpose 24-feature, 5-level
+U-Net with flip TTA, at any field of view, and the Hyperfine T1+T2 residual
+net) and supervised training.  It imports ``torch`` and never ``jax``,
+``flax`` or ``synthsr_tpu``: the host modules it needs from the JAX package
+are copied here under the same module names.
 
-=========================  =========================================  ====================================
-module                     JAX counterpart                            what it holds
-=========================  =========================================  ====================================
-``ops/conv_cf.py``         ``synthsr_tpu/ops/conv_pallas.py``         ``conv3d_cf`` (kernel dispatch, launch
-                           (forward family)                           counts) and ``conv3d_cf_reference``
-``csrc/conv3d_cf.cu``      ``_first_kernel``, ``_plane_kernel``,      H-first and H-fwd, CUDA C++ for sm_90a
-                           ``conv3d_cf_grouped``, ``_flat_kernel``
-``ops/cuda_build.py``      (none: Pallas compiles in ``jit``)         nvcc build on first use, ctypes load
-``ops/linops.py``          ``synthsr_tpu/ops/linops.py``              ``apply_axis_ops`` (device resample)
-``models/unet.py``         ``synthsr_tpu/models/unet.py``             ``UNet3D`` (plain forward), ``synthsr_unet``
-``models/unet_cf.py``      ``synthsr_tpu/models/unet_cf.py``          ``fast_unet_forward``, ``pack_unet``,
-                                                                      ``bn_affine``, ``flip_d_state_dict``
-``models/weights.py``      flax ``init`` + ``models/h5_import.py``    flax tree <-> state dict, seeded
-                           glue                                       ``random_variables``, weight loading
-``cli/predict.py``         ``synthsr_tpu/cli/predict.py``             ``Predictor``, ``run_batch``, ``main``
-=========================  =========================================  ====================================
+Modules, each beside its JAX counterpart of the same path unless named:
 
-Run the predict CLI with ``python -m synthsr_tpu_torch.cli.predict in out``.
+- ``ops/conv_cf.py`` (``ops/conv_pallas.py``'s forward and weight-gradient
+  entries): ``conv3d_cf`` / ``conv3d_cf_wgrad`` dispatch, launch counts and
+  their plain versions;
+- ``csrc/conv3d_cf.cu``: H-first and H-fwd, CUDA C++ for sm_90a, replacing
+  ``_first_kernel``, ``_plane_kernel``, ``conv3d_cf_grouped``,
+  ``_flat_kernel`` and ``_kernel``; ``csrc/conv3d_wgrad.cu``: H-wgrad,
+  replacing ``_wgrad_kernel`` and ``_wgrad_flat_kernel``;
+- ``ops/cuda_build.py`` (no counterpart: Pallas compiles in ``jit``): nvcc
+  build on first use, ctypes load;
+- ``ops/conv_train.py``, ``ops/linops.py``, ``ops/blur.py``,
+  ``ops/interp.py``, ``ops/losses.py``: the differentiable conv, the device
+  resample and the generator's and losses' ops;
+- ``models/unet.py`` (plain forwards), ``models/unet_cf.py``
+  (``fast_unet_forward``), ``models/unet_cf_train.py`` (fast train-mode
+  forward), ``models/weights.py`` (flax tree <-> state dict, seeded
+  ``random_variables``, weight loading);
+- ``synth/``, ``train/``, ``utils/finite_guard.py``: the generator and the
+  training loop;
+- ``cli/predict.py``, ``cli/predict_hyperfine.py``, ``cli/train.py``: the
+  CLIs, with the JAX ones' flags;
+- copies of the JAX package's host modules: ``io/nifti.py``,
+  ``io/volume.py``, ``io/labels.py`` (without the C++ NIfTI loader),
+  ``ops/host_matrices.py``, ``models/h5_import.py``,
+  ``synth/model_inputs.py``, ``utils/misc.py``, ``utils/prefetch.py``,
+  ``cli/_pipeline.py``.
+
+Run the predict CLIs with ``python -m synthsr_tpu_torch.cli.predict in out``
+and ``python -m synthsr_tpu_torch.cli.predict_hyperfine t1 t2 out``.
 """
 
 __version__ = "0.1.0"

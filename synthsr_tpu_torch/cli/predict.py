@@ -19,22 +19,26 @@ flip-TTA pass of the fast forward reuses it with D-flipped conv kernels
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
 import torch
 
-from synthsr_tpu.cli._pipeline import run_pipelined
-from synthsr_tpu.cli.predict import DEFAULT_MODEL, _prepare_paths
-from synthsr_tpu.io.volume import align_volume_to_ref, load_volume, save_volume
-from synthsr_tpu.ops.host_matrices import resample_volume_matrices
-
+from ..io.volume import align_volume_to_ref, load_volume, save_volume
 from ..models.unet import synthsr_unet
 from ..models.unet_cf import fast_unet_forward, flip_d_state_dict, pack_unet
 from ..models.weights import load_unet_weights
+from ..ops.host_matrices import resample_volume_matrices
 from ..ops.linops import apply_axis_ops
+from ..utils.misc import list_images_in_folder
+from ._pipeline import run_pipelined
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_EXTS = (".nii.gz", ".nii", ".mgz", ".npz")
+
+DEFAULT_MODEL = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "models", "SynthSR_v10_210712.h5")
 
 
 def build_arg_parser():
@@ -59,6 +63,33 @@ def build_arg_parser():
     return p
 
 
+def _output_name(path_in: str, out_dir: str) -> str:
+    name = os.path.basename(path_in)
+    for e in _EXTS:
+        if name.endswith(e):
+            name = name[: -len(e)] + "_SynthSR" + e
+            break
+    return os.path.join(out_dir, name)
+
+
+def _prepare_paths(path_images: str, path_predictions: str):
+    """File-or-directory batch semantics with _SynthSR suffix naming
+    (reference predict_command_line.py:91-105), as
+    ``synthsr_tpu/cli/predict.py:_prepare_paths``."""
+    path_images = os.path.abspath(path_images)
+    path_predictions = os.path.abspath(path_predictions)
+    if not os.path.basename(path_images).endswith(_EXTS):
+        if os.path.isfile(path_images):
+            raise ValueError(f"extension not supported for {path_images}, "
+                             "only use: nii.gz, .nii, .mgz, or .npz")
+        images = list_images_in_folder(path_images)
+        os.makedirs(path_predictions, exist_ok=True)
+        return images, [_output_name(im, path_predictions) for im in images]
+    if not os.path.isfile(path_images):
+        raise FileNotFoundError(f"file does not exist: {path_images}")
+    return [path_images], [path_predictions]
+
+
 def _device(device) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -68,6 +99,24 @@ def _device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def device_axis_ops(im: np.ndarray, mats, device: torch.device) -> np.ndarray:
+    """Per-axis matrices (host-built, ``ops/host_matrices.py``) applied to a
+    float32 volume on ``device`` (``ops/linops.apply_axis_ops``); the result
+    comes back to the host as float32 numpy."""
+    out = apply_axis_ops(torch.from_numpy(im).to(device),
+                         [torch.from_numpy(m).to(device) for m in mats])
+    return out.cpu().numpy()
+
+
+def pad_to_32(shape):
+    """The centred zero-pad of a volume to a multiple of 32 in every axis:
+    (padded shape, the slices of the volume inside it)."""
+    shape = np.array(shape)
+    padded = (np.ceil(shape / 32.0) * 32).astype(int)
+    lo = np.floor((padded - shape) / 2).astype(int)
+    return tuple(int(p) for p in padded), tuple(slice(a, a + s) for a, s in zip(lo, shape))
 
 
 class Predictor:
@@ -121,20 +170,15 @@ class Predictor:
         im = np.asarray(im, np.float32)
         if self.ct:
             im = np.clip(im, 0.0, 80.0)
-        mats, new_shape, aff = resample_volume_matrices(im.shape, aff, [1.0, 1.0, 1.0])
-        dev = apply_axis_ops(torch.from_numpy(im).to(self.device),
-                             [torch.from_numpy(m).to(self.device) for m in mats])
-        im = dev.cpu().numpy().reshape(new_shape)
+        mats, _, aff = resample_volume_matrices(im.shape, aff, [1.0, 1.0, 1.0])
+        im = device_axis_ops(im, mats, self.device)
         im, aff2 = align_volume_to_ref(im, aff, aff_ref=np.eye(4), return_aff=True,
                                        n_dims=3)
         im = im - np.min(im)
         mx = np.max(im)
         if mx > 0:
             im = im / mx
-        shape = np.array(im.shape)
-        padded = (np.ceil(shape / 32.0) * 32).astype(int)
-        lo = np.floor((padded - shape) / 2).astype(int)
-        crop = tuple(slice(a, a + s) for a, s in zip(lo, shape))
+        padded, crop = pad_to_32(im.shape)
         s = np.zeros((1, 1, *padded), np.float32)
         s[(0, 0) + crop] = im
         return torch.from_numpy(s).to(self.device), crop, aff2
@@ -153,8 +197,8 @@ class Predictor:
 
 def run_batch(predictor: Predictor, images, outs, prefetch: int = 2,
               verbose: bool = False):
-    """Directory batch mode on the JAX package's three-stage pipeline
-    (``synthsr_tpu/cli/_pipeline.py``: loader thread ahead, writer behind)."""
+    """Directory batch mode on the three-stage pipeline (``cli/_pipeline.py``:
+    loader thread ahead, writer behind)."""
     def loads():
         for pin in images:
             yield load_volume(pin, im_only=False, dtype="float")

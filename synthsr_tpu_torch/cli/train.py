@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import argparse
 
-from synthsr_tpu.utils.misc import infer
+from ..utils.misc import infer
 
 
 def build_arg_parser():

@@ -46,7 +46,10 @@ __device__ __forceinline__ float activate(float v, int act) {
 // ---------------------------------------------------------------------------
 // H-fwd: the general conv.  Replaces the TPU kernels K2 (_plane_kernel,
 // synthsr_tpu/ops/conv_pallas.py:270), K3 (conv3d_cf_grouped :920, channel-
-// group chaining through `accum`) and K4 (_flat_kernel :1297).
+// group chaining through `accum`), K4 (_flat_kernel :1297) and K5 (_kernel
+// :127, the blocked halo-slab conv of the large-field-of-view level-0 convs,
+// e.g. 24->24 at 192x256x512; its 128-aligned W padding and (td, th) blocks
+// are VMEM artefacts with no counterpart here).
 //
 // Bound: at the U-Net's widths (24..384 channels) the conv does 27*cin FMAs
 // per output value against 2 bytes read per input value, so it is bound by

@@ -1,7 +1,8 @@
-"""Weight bridge between the JAX package's flax tree and the port's state dict.
+"""Weight bridge between the JAX package's flax tree layout and the port's
+state dict.
 
-It stands in for flax ``init`` and for the glue around
-``synthsr_tpu/models/h5_import.py``:
+It stands in for flax ``init`` and for the glue around ``models/h5_import.py``
+(the port's copy of ``synthsr_tpu/models/h5_import.py``):
 
 - :func:`variables_to_state_dict` / :func:`state_dict_to_variables` convert
   ``{"params", "batch_stats"}`` (numpy, flax layout) to and from a
@@ -16,11 +17,12 @@ It stands in for flax ``init`` and for the glue around
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from synthsr_tpu.models.h5_import import load_keras_unet_weights
-
+from .h5_import import load_keras_unet_weights
 from .unet import SYNTHSR_CONFIG, unet_layers
 
 _BN_KEYS = (("params", "scale", "weight"), ("params", "bias", "bias"),
@@ -99,6 +101,9 @@ def load_unet_weights(model, model_path: str):
     """Fill ``model`` (a ``UNet3D``) from ``.h5`` (Keras; a ``random_variables``
     tree is the shape template) or a ``torch.save``d state dict (``.pt`` /
     ``.pth``)."""
+    if not os.path.isfile(model_path):
+        raise FileNotFoundError(f"weights not found at {model_path}; pass --model "
+                                "(the shipped .h5 files come from git-LFS)")
     if model_path.endswith(".h5"):
         template = random_variables(model.config, model.in_channels)
         sd = variables_to_state_dict(load_keras_unet_weights(model_path, template))

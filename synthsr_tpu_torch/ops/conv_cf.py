@@ -22,7 +22,17 @@
 Dispatch, with no fallback: a CPU tensor goes to :func:`conv3d_cf_reference`
 (plain PyTorch); a CUDA tensor launches **H-first** (one source, C_in <= 2, no
 ``accum``, no ``head``; replaces K1) or **H-fwd** (everything else; replaces
-K2, K3 and K4) from ``csrc/conv3d_cf.cu``; any other device raises.
+K2, K3, K4 and K5) from ``csrc/conv3d_cf.cu``; any other device raises.
+
+K5 (``_kernel``, ``synthsr_tpu/ops/conv_pallas.py:127``, entry ``conv3d_cf``
+:990) is the TPU's blocked conv for the shapes the plane and folded-plane
+layouts reject: W % 128 == 0, H % 16 == 0, C_in <= 96 and C_in·W <= 96·256
+(``synthsr_tpu/models/unet_cf.py:140-159``).  On the predict path these are
+the level-0 convs of a large field of view, e.g. 24->24 at 192x256x512 or
+256x384x384 and, unfused, 72->24 at 256x512x256, whose planes (cin·H·W over
+24·256²) pass the other kernels' caps.  H-fwd takes those shapes as it takes
+any other (64-bit offsets; grid (W/32·H/8, D, C_out tiles)), with bias and
+activation fused at every C_in, so no dispatch here depends on them.
 
 ``conv3d_cf_wgrad(x, g)`` is the training backward's weight gradient,
 ``dw[dz, dy, dx, ci, co] = sum x[ci, z+dz-1, h+dy-1, w+dx-1] g[co, z, h, w]``

@@ -9,7 +9,7 @@ axis applies it (reference ``ext/lab2im/edit_tensors.py`` gaussian_kernel :86,
 resample_tensor :257; ``ext/lab2im/layers.py`` GaussianBlur :655,
 DynamicGaussianBlur :770, MimicAcquisition :835).  The predict path's 1 mm
 resample uses :func:`apply_axis_ops` with matrices built on the host
-(``synthsr_tpu.ops.host_matrices``).
+(``ops/host_matrices.py``).
 """
 
 from __future__ import annotations

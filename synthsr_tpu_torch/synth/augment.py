@@ -19,9 +19,8 @@ import math
 import numpy as np
 import torch
 
-from synthsr_tpu.utils.misc import get_mapping_lut
-
 from ..ops import interp, linops
+from ..utils.misc import get_mapping_lut
 from .sampling import bernoulli, draw_value, normal, randint, uniform
 
 

@@ -2,8 +2,8 @@
 ``synthsr_tpu/synth/brain_generator.py`` (reference
 ``SynthSR/brain_generator.py:28-146`` and ``generate_brain()`` :317-330).
 
-Label maps (and GMM parameters) stream from the JAX package's numpy host
-pipeline (``synthsr_tpu.synth.model_inputs``); each example runs through
+Label maps (and GMM parameters) stream from the numpy host pipeline
+(``synth/model_inputs.py``); each example runs through
 :class:`~.labels_to_image.Generator` on ``device`` with a seeded
 ``torch.Generator``; ``generate_brain`` returns numpy (image, target)
 re-aligned to the first label map's orientation.
@@ -14,12 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from synthsr_tpu.io.labels import get_list_labels
-from synthsr_tpu.io.volume import align_volume_to_ref, get_volume_info
-from synthsr_tpu.synth.model_inputs import build_model_inputs
-from synthsr_tpu.utils.misc import list_images_in_folder, load_array_if_path, reformat_to_list
-
+from ..io.labels import get_list_labels
+from ..io.volume import align_volume_to_ref, get_volume_info
+from ..utils.misc import list_images_in_folder, load_array_if_path, reformat_to_list
 from .labels_to_image import GenerationConfig, build_generator
+from .model_inputs import build_model_inputs
 
 
 class BrainGenerator:

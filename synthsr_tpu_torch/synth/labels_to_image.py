@@ -21,12 +21,11 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
-from synthsr_tpu.io.volume import get_ras_axes
-from synthsr_tpu.utils.misc import (find_closest_number_divisible_by_m, reformat_to_list,
-                                    reformat_to_n_channels_array)
-
+from ..io.volume import get_ras_axes
 from ..ops import interp
 from ..ops.blur import blurring_sigma_for_downsampling, blurring_sigma_np
+from ..utils.misc import (find_closest_number_divisible_by_m, reformat_to_list,
+                          reformat_to_n_channels_array)
 from . import augment
 from .sampling import normal
 

@@ -1,0 +1,88 @@
+"""Host-side input sampler: random label-map pick + GMM prior draws.  The
+port's own copy of ``synthsr_tpu/synth/model_inputs.py``, without its
+multi-host ``local_slice`` and lab2im ``use_specific_stats_for_channel``
+options, which no caller of the port sets.
+
+Re-implementation of ``SynthSR/model_inputs.py:25-139``: an infinite generator
+yielding (label_map, means, stds[, real_image]) batches.  Per reference
+defaults, class means draw from the hyperprior with centre 125 ± 100 and stds
+with 15 ± 10, positive-clipped (:118-121); class draws are expanded to labels
+via ``generation_classes`` (:122); multi-channel priors use per-channel 2-row
+blocks when the prior array has 2·n_channels rows.  An optional ``rng`` makes
+the stream reproducible.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..io.volume import get_volume_info, load_volume
+from ..utils.misc import draw_value_from_distribution
+
+
+def build_model_inputs(path_label_maps, n_labels, prior_means, prior_stds,
+                       prior_distributions="normal", path_images=None,
+                       batchsize=1, n_channels=1, generation_classes=None,
+                       rng: np.random.Generator | None = None,
+                       include_gmm_params=True):
+    """Infinite generator of model inputs (lists stacked to batch arrays).
+
+    A 2n-row prior array must have one 2-row block per channel
+    (model_inputs.py:105-116).  ``include_gmm_params=False`` yields only
+    (labels[, image]), for the training path that draws the GMM parameters on
+    the device (``synth/sampling.make_gmm_sampler``)."""
+    _ = get_volume_info(path_label_maps[0])  # validates the first map
+
+    if generation_classes is None:
+        generation_classes = np.arange(n_labels)
+    generation_classes = np.asarray(generation_classes, np.int32)
+    n_classes = len(np.unique(generation_classes))
+    rand = rng if rng is not None else np.random.default_rng()
+
+    while True:
+        indices = rand.integers(len(path_label_maps), size=batchsize)
+
+        list_label_maps, list_means, list_stds, list_images = [], [], [], []
+        for idx in indices:
+            lab = load_volume(path_label_maps[idx], dtype="int", aff_ref=np.eye(4))
+            list_label_maps.append(lab[None, ..., None])
+            if path_images is not None:
+                im = load_volume(path_images[idx], dtype="float", aff_ref=np.eye(4))
+                list_images.append(im[None, ..., None])
+            if not include_gmm_params:
+                continue
+
+            means = np.empty((1, n_labels, 0))
+            stds = np.empty((1, n_labels, 0))
+            for channel in range(n_channels):
+                pm, ps = prior_means, prior_stds
+                if isinstance(pm, np.ndarray):
+                    if pm.shape[0] / 2 != n_channels:
+                        raise ValueError("the number of blocks in prior_means "
+                                         "does not match n_channels")
+                    pm = pm[2 * channel: 2 * channel + 2, :]
+                if isinstance(ps, np.ndarray):
+                    if ps.shape[0] / 2 != n_channels:
+                        raise ValueError("the number of blocks in prior_stds "
+                                         "does not match n_channels")
+                    ps = ps[2 * channel: 2 * channel + 2, :]
+                cls_means = draw_value_from_distribution(
+                    pm, n_classes, prior_distributions, 125.0, 100.0,
+                    positive_only=True, rng=rng)
+                cls_stds = draw_value_from_distribution(
+                    ps, n_classes, prior_distributions, 15.0, 10.0,
+                    positive_only=True, rng=rng)
+                means = np.concatenate([means, cls_means[generation_classes][None, :, None]],
+                                       axis=-1)
+                stds = np.concatenate([stds, cls_stds[generation_classes][None, :, None]],
+                                      axis=-1)
+            list_means.append(means)
+            list_stds.append(stds)
+
+        inputs = [np.concatenate(list_label_maps, 0).astype(np.int32)]
+        if include_gmm_params:
+            inputs += [np.concatenate(list_means, 0).astype(np.float32),
+                       np.concatenate(list_stds, 0).astype(np.float32)]
+        if path_images is not None:
+            inputs.append(np.concatenate(list_images, 0).astype(np.float32))
+        yield inputs

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from synthsr_tpu.utils.misc import load_array_if_path
+from ..utils.misc import load_array_if_path
 
 _NUMERIC = (int, float, np.integer, np.floating)
 

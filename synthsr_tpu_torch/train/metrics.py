@@ -10,9 +10,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from synthsr_tpu.utils.misc import reformat_to_list
-
 from ..ops.losses import l1_loss, l2_loss, laplace_nll, ssim3d_loss
+from ..utils.misc import reformat_to_list
 
 
 def center_crop(x: torch.Tensor, crop: Optional[Sequence[int]]):

@@ -31,12 +31,10 @@ import time
 import numpy as np
 import torch
 
-from synthsr_tpu.io.labels import get_list_labels
-from synthsr_tpu.models.h5_import import export_keras_unet_weights, load_keras_unet_weights
-from synthsr_tpu.synth.model_inputs import build_model_inputs
-from synthsr_tpu.utils.misc import get_padding_margin, reformat_to_list
-from synthsr_tpu.utils.prefetch import PrefetchIterator
-
+from ..io.labels import get_list_labels
+from ..models.h5_import import export_keras_unet_weights, load_keras_unet_weights
+from ..synth.model_inputs import build_model_inputs
+from ..utils.misc import get_padding_margin, reformat_to_list
 from ..models.unet import UNet3D
 from ..models.unet_cf_train import fast_train_forward
 from ..models.weights import state_dict_to_variables, variables_to_state_dict
@@ -44,6 +42,7 @@ from ..synth.brain_generator import BrainGenerator
 from ..synth.labels_to_image import build_generator
 from ..synth.sampling import make_gmm_sampler
 from ..utils.finite_guard import FiniteGuard, adam_init, adam_update, guard_updates
+from ..utils.prefetch import PrefetchIterator
 from .metrics import doubled_residual_indices, regression_loss
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
