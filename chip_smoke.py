@@ -1,8 +1,9 @@
 """GPU smoke run of the PyTorch port: builds the hand-written CUDA kernels,
 holds each against its plain PyTorch version (and times the one PyTorch call
 that computes the same function, and the card's bound) at the shapes of the
-port's main paths, then drives each at full width (24 features, 5 levels,
-seeded random weights and data):
+port's main paths: H-first, the tensor-core H-fwd-mma and H-wgrad-mma in
+bf16, and the CUDA-core H-fwd and H-wgrad in float32.  Then it drives each
+path at full width (24 features, 5 levels, seeded random weights and data):
 
 - predict: ``synthsr_tpu_torch.cli.predict.main`` with flip TTA over three
   synthetic volumes, and the fast network against the plain float32 forward;
@@ -16,7 +17,8 @@ seeded random weights and data):
   of ``bench_train.py`` (128³, 4 input channels, bf16) on seeded synthetic
   label maps, 2 epochs x 3 steps then a resume to epoch 3, one step's
   gradients against the plain float32 autograd of ``UNet3D.forward_train``,
-  and the time of consecutive warm steps.
+  and the time of consecutive warm steps; then 2 steps with
+  ``--compute_dtype float32``, the path of the float32 kernels.
 
     python3 chip_smoke.py
 
@@ -41,6 +43,7 @@ import torch
 KERNEL_BOUND = 1e-2   # max|kernel - plain| / max|plain|, bf16 output (2^-8 rounding)
 HEAD_BOUND = 1e-4     # the same for the f32 head output (sum order only)
 WGRAD_BOUND = 1e-4    # the same for H-wgrad: f32 sums of bf16 products (order only)
+F32_BOUND = 1e-5      # the same for the float32 CUDA-core kernels (order only)
 NET_BOUND = 2e-2      # relative L2, bf16 fast TTA network output vs plain f32
 GRAD_BOUND = 5e-2     # relative L2, one train step's bf16 kernel-path gradient vs plain f32
 # the same for each 3³ conv's weight gradient on its own: the whole-gradient
@@ -49,48 +52,65 @@ GRAD_BOUND = 5e-2     # relative L2, one train step's bf16 kernel-path gradient 
 LEAF_BOUND = 0.15
 LOSS_BOUND = 1e-2     # relative difference of that step's loss
 WARM_STEPS = 12       # consecutive warm train steps timed with CUDA events
-# the bound: the larger of the operations over the H100 SXM's dense bf16 peak
-# and the bytes (each input read once, each output written once) over its
-# memory rate (NVIDIA's data sheet, at the full 700 W power limit)
+# the bound: the larger of the operations over the H100 SXM's peak for their
+# type (dense bf16 on the tensor cores; float32 on the CUDA cores) and the
+# bytes (each input read once, each output written once) over its memory rate
+# (NVIDIA's data sheet, at the full 700 W power limit)
 PEAK_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SOURCE = "synthsr_tpu_torch/csrc/conv3d_cf.cu"
 WGRAD_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad.cu"
+MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_fwd_mma.cu"
+WGRAD_MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad_mma.cu"
 PALLAS = "synthsr_tpu/ops/conv_pallas.py"
+NO_LAUNCHES = {"first": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0, "wgrad": 0}
 # kernel launches per train step of the shipped net (4 input channels, so no
 # H-first): 18 forward convs + 17 input gradients (not the first conv's) on
-# H-fwd; 18 weight gradients + 4 for the decoders' second sources on H-wgrad
-TRAIN_LAUNCHES = {"first": 0, "fwd": 35, "wgrad": 22}
+# H-fwd-mma; 18 weight gradients + 4 for the decoders' second sources on
+# H-wgrad-mma; in float32 the same counts on H-fwd and H-wgrad
+TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_mma": 35, "wgrad_mma": 22}
+TRAIN_F32_LAUNCHES = {**NO_LAUNCHES, "fwd": 35, "wgrad": 22}
+TRAIN_F32_STEPS = 2
 
-# (name, kernel, source channels, cout, spatial, fused epilogue)
+# (name, kernel, source channels, cout, spatial, fused epilogue, dtype)
+BF16, F32 = torch.bfloat16, torch.float32
 SHAPES = [
-    ("1->24 @256^3", "first", (1,), 24, (256, 256, 256), "bias+elu"),
-    ("2->24 @256^3", "first", (2,), 24, (256, 256, 256), "bias+elu"),
-    ("24->24 @256^3", "fwd", (24,), 24, (256, 256, 256), "bias+elu"),
-    ("[24,48]->24 @256^3", "fwd", (24, 48), 24, (256, 256, 256), "bias+elu"),
-    ("24->24 @256^3 +post+head", "fwd", (24,), 24, (256, 256, 256), "bias+elu+post+head"),
-    ("48->48 @128^3", "fwd", (48,), 48, (128, 128, 128), "bias+elu"),
-    ("96->96 @64^3", "fwd", (96,), 96, (64, 64, 64), "bias+elu"),
-    ("[192,384]->192 @32^3 +post", "fwd", (192, 384), 192, (32, 32, 32), "bias+elu+post"),
-    ("1->24 @192x224x192", "first", (1,), 24, (192, 224, 192), "bias+elu"),
-    ("24->24 @192x224x192", "fwd", (24,), 24, (192, 224, 192), "bias+elu"),
+    ("1->24 @256^3", "first", (1,), 24, (256, 256, 256), "bias+elu", BF16),
+    ("2->24 @256^3", "first", (2,), 24, (256, 256, 256), "bias+elu", BF16),
+    ("24->24 @256^3", "fwd_mma", (24,), 24, (256, 256, 256), "bias+elu", BF16),
+    ("[24,48]->24 @256^3", "fwd_mma", (24, 48), 24, (256, 256, 256), "bias+elu", BF16),
+    ("24->24 @256^3 +post+head", "fwd_mma", (24,), 24, (256, 256, 256), "bias+elu+post+head",
+     BF16),
+    ("4->24 @128^3", "fwd_mma", (4,), 24, (128, 128, 128), "bias+elu", BF16),
+    ("48->48 @128^3", "fwd_mma", (48,), 48, (128, 128, 128), "bias+elu", BF16),
+    ("96->96 @64^3", "fwd_mma", (96,), 96, (64, 64, 64), "bias+elu", BF16),
+    ("[192,384]->192 @32^3 +post", "fwd_mma", (192, 384), 192, (32, 32, 32), "bias+elu+post",
+     BF16),
+    ("1->24 @192x224x192", "first", (1,), 24, (192, 224, 192), "bias+elu", BF16),
+    ("24->24 @192x224x192", "fwd_mma", (24,), 24, (192, 224, 192), "bias+elu", BF16),
     # a large field of view: the level-0 convs that K5 served on the TPU,
     # 24-, 48- and 72-channel sources of 25 M voxels (a 72-channel source's
     # byte offsets pass 2^31)
-    ("1->24 @192x256x512", "first", (1,), 24, (192, 256, 512), "bias+elu"),
-    ("24->24 @192x256x512 (K5)", "fwd", (24,), 24, (192, 256, 512), "bias+elu"),
-    ("[24,48]->24 @192x256x512", "fwd", (24, 48), 24, (192, 256, 512), "bias+elu"),
-    ("72->24 @192x256x512", "fwd", (72,), 24, (192, 256, 512), "bias+elu"),
-    ("24->24 @64x384x384 (K5)", "fwd", (24,), 24, (64, 384, 384), "bias+elu"),
+    ("1->24 @192x256x512", "first", (1,), 24, (192, 256, 512), "bias+elu", BF16),
+    ("24->24 @192x256x512 (K5)", "fwd_mma", (24,), 24, (192, 256, 512), "bias+elu", BF16),
+    ("[24,48]->24 @192x256x512", "fwd_mma", (24, 48), 24, (192, 256, 512), "bias+elu", BF16),
+    ("72->24 @192x256x512", "fwd_mma", (72,), 24, (192, 256, 512), "bias+elu", BF16),
+    ("24->24 @64x384x384 (K5)", "fwd_mma", (24,), 24, (64, 384, 384), "bias+elu", BF16),
     # the train step's input-gradient convs: flipped, transposed weights, no epilogue
-    ("24->72 @128^3 (dx)", "fwd", (24,), 72, (128, 128, 128), "dx"),
-    ("48->144 @64^3 (dx)", "fwd", (48,), 144, (64, 64, 64), "dx"),
+    ("24->72 @128^3 (dx)", "fwd_mma", (24,), 72, (128, 128, 128), "dx", BF16),
+    ("48->144 @64^3 (dx)", "fwd_mma", (48,), 144, (64, 64, 64), "dx", BF16),
+    # the CUDA-core kernels on float32 activations
+    ("1->24 @128^3 f32", "first", (1,), 24, (128, 128, 128), "bias+elu", F32),
+    ("24->24 @128^3 f32", "fwd", (24,), 24, (128, 128, 128), "bias+elu", F32),
 ]
-TIMED = {"first": "1->24 @256^3", "fwd": "[24,48]->24 @256^3", "wgrad": "(24,24) @128^3"}
+TIMED = {"first": "1->24 @256^3", "fwd_mma": "[24,48]->24 @256^3",
+         "wgrad_mma": "(24,24) @128^3", "fwd": "24->24 @128^3 f32", "wgrad": "(24,24) @64^3 f32"}
 
-# H-wgrad at the train step's weight-gradient shapes: (ci, co, spatial)
-WGRAD_SHAPES = [(4, 24, 128), (24, 24, 128), (48, 24, 128), (48, 48, 64), (96, 48, 64),
-                (192, 96, 32), (384, 384, 8)]
+# H-wgrad-mma at the train step's weight-gradient shapes, then H-wgrad on
+# float32: (ci, co, spatial, dtype)
+WGRAD_SHAPES = [(4, 24, 128, BF16), (24, 24, 128, BF16), (48, 24, 128, BF16), (48, 48, 64, BF16),
+                (96, 48, 64, BF16), (192, 96, 32, BF16), (384, 384, 8, BF16), (24, 24, 64, F32)]
 
 # synthetic inputs: (file name, shape, voxel size mm, CT); the first resamples
 # to 256^3, the second is a clinical anisotropic scan padding to 192x224x192
@@ -101,8 +121,31 @@ VOLUMES = [("t1_256.nii.gz", (256, 256, 128), (1.0, 1.0, 2.0), False),
 LARGE_FOV = ("head_neck_ct.nii", (180, 250, 500), (1.0, 1.0, 1.0))
 # Hyperfine T1/T2 pairs at 1.5 x 1.5 x 5 mm: (T1 shape, T2 rotated about z, degrees)
 HYPERFINE = [((128, 160, 32), 0.0), ((128, 160, 32), 10.0)]
-PREDICT_LAUNCHES = {"first": 2, "fwd": 34, "wgrad": 0}   # per volume, flip TTA
-HYPERFINE_LAUNCHES = {"first": 1, "fwd": 17, "wgrad": 0}  # per pair, one forward
+PREDICT_LAUNCHES = {**NO_LAUNCHES, "first": 2, "fwd_mma": 34}   # per volume, flip TTA
+HYPERFINE_LAUNCHES = {**NO_LAUNCHES, "first": 1, "fwd_mma": 17}  # per pair, one forward
+
+
+def ptxas_summary(log):
+    """{kernel<template args>: "N registers, S B spill"} from the
+    ``-Xptxas -v`` output of the build."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '\w*?\d+(conv3d_[a-z_]+?_kernel)(I\w*?EE)?", line)
+        if m:
+            targs = m.group(2) or ""
+            args = (["bf16"] if "bfloat16" in targs else ["f32"] if targs.startswith("If") else [])
+            name = m.group(1) + "<" + ",".join(args + re.findall(r"Li(\d+)E", targs)) + ">"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name] = f"{m.group(1)} B spill"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, " + out.get(name, "")
+            name = None
+    return out
 
 
 def require(ok, what):
@@ -114,9 +157,10 @@ def phase(name):
     print(f"== {name}", flush=True)
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, dtype=BF16):
     """(bound_ms, bound_by): the least time the card could take."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    t_ops = flops / (PEAK_FLOPS if dtype == BF16 else PEAK_F32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -133,23 +177,24 @@ def cuda_ms(fn, reps):
 
 
 def check_kernels(conv_cf, gen):
-    """Each kernel against conv3d_cf_reference on the same bf16 inputs."""
+    """Each kernel against conv3d_cf_reference on the same bf16 (or float32)
+    inputs."""
     dev = torch.device("cuda")
     results = []
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, device=dev, generator=gen) * scale
 
-    for name, kernel, cins, cout, spatial, fused in SHAPES:
+    for name, kernel, cins, cout, spatial, fused, dtype in SHAPES:
         cin = sum(cins)
-        srcs = [randn(c, *spatial).to(torch.bfloat16) for c in cins]
+        srcs = [randn(c, *spatial).to(dtype) for c in cins]
         if fused == "dx":
             w = randn(3, 3, 3, cout, cin, scale=(2 / (27 * cin)) ** 0.5)
             kw = dict(x=srcs[0], w=torch.flip(w, (0, 1, 2)).transpose(3, 4))
         else:
             kw = dict(x=srcs if len(srcs) > 1 else srcs[0],
                       w=conv_cf.pack_conv(randn(3, 3, 3, cin, cout, scale=(2 / (27 * cin)) ** 0.5),
-                                          torch.bfloat16),
+                                          dtype, cins),
                       bias=randn(cout, scale=0.1), activation="elu")
         if "post" in fused:
             kw["post"] = torch.stack([torch.rand(cout, device=dev, generator=gen) * 0.4 + 0.8,
@@ -167,20 +212,23 @@ def check_kernels(conv_cf, gen):
         require(got.shape == want.shape and got.dtype == want.dtype, name)
         err = float((got.float() - want.float()).abs().max())
         rel = err / float(want.float().abs().max())
-        tol = HEAD_BOUND if "head" in fused else KERNEL_BOUND
+        tol = F32_BOUND if dtype == F32 else HEAD_BOUND if "head" in fused else KERNEL_BOUND
         reps = 3 if cin * np.prod(spatial) > 2 ** 28 else 10
         ms = cuda_ms(lambda: conv_cf.conv3d_cf(**kw), reps)
         plain_ms = cuda_ms(lambda: conv_cf.conv3d_cf_reference(**kw), reps)
         library_ms = cuda_ms(lib, reps)
         vox = int(np.prod(spatial))
-        out_bytes = 4 * vox if "head" in fused else 2 * cout * vox
+        size = 2 if dtype == BF16 else 4
+        out_bytes = 4 * vox if "head" in fused else size * cout * vox
         bound_ms, bound_by = bound(2 * 27 * cin * cout * vox,
-                                   2 * cin * vox + 4 * 27 * cin * cout + out_bytes)
-        print(f"  {kernel:5s} {name:28s} {fused:20s} max_abs_err {err:.3e} rel {rel:.3e} "
+                                   size * cin * vox + 4 * 27 * cin * cout + out_bytes,
+                                   dtype)
+        print(f"  {kernel:7s} {name:28s} {fused:20s} max_abs_err {err:.3e} rel {rel:.3e} "
               f"(tolerance {tol:.0e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
               f"library {library_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})", flush=True)
         require(np.isfinite(rel) and rel <= tol, (name, rel, tol))
-        results.append(dict(kernel=kernel, shape=name, fused=fused, max_abs_err=err,
+        results.append(dict(kernel=kernel, shape=name, fused=fused, dtype=str(dtype)[6:],
+                            max_abs_err=err,
                             rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound_ms, bound_by=bound_by))
         del srcs, kw, got, want, lib
@@ -189,32 +237,38 @@ def check_kernels(conv_cf, gen):
 
 
 def library_conv(conv_cf, kw):
-    """One cuDNN call on the same bf16 operands: F.conv3d of the concatenated
-    sources (concatenated here, outside the timing) with the bias; the
-    activation, ``post`` and ``head`` epilogues are not part of it."""
+    """One cuDNN call on the same bf16 (or float32, TF32 off) operands:
+    F.conv3d of the concatenated sources (concatenated here, outside the
+    timing) with the bias; the activation, ``post`` and ``head`` epilogues are
+    not part of it."""
     srcs = kw["x"] if isinstance(kw["x"], list) else [kw["x"]]
     x = torch.cat(srcs, 0)[None] if len(srcs) > 1 else srcs[0][None]
     w = kw["w"].w if isinstance(kw["w"], conv_cf.PackedConv) else kw["w"]
-    w = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous()
+    w = w.to(x.dtype).permute(4, 3, 0, 1, 2).contiguous()
     b = kw.get("bias")
-    b = None if b is None else b.to(torch.bfloat16)
+    b = None if b is None else b.to(x.dtype)
     return lambda: torch.nn.functional.conv3d(x, w, b, padding=1)
 
 
 def check_wgrad(conv_cf, gen):
-    """H-wgrad against conv3d_cf_wgrad_reference (float32 conv3d_weight, TF32
-    off) on the same bf16 inputs, and two calls bit-equal."""
+    """H-wgrad-mma (bf16) and H-wgrad (float32) against
+    conv3d_cf_wgrad_reference (float32 conv3d_weight, TF32 off) on the same
+    inputs, and two calls bit-equal."""
     dev = torch.device("cuda")
     results = []
-    for ci, co, n in WGRAD_SHAPES:
-        name = f"({ci},{co}) @{n}^3"
-        x = torch.randn(ci, n, n, n, device=dev, generator=gen).to(torch.bfloat16)
-        g = torch.randn(co, n, n, n, device=dev, generator=gen).to(torch.bfloat16)
-        before = conv_cf.LAUNCHES["wgrad"]
+    for ci, co, n, dtype in WGRAD_SHAPES:
+        kernel = "wgrad_mma" if dtype == BF16 else "wgrad"
+        tol = WGRAD_BOUND if dtype == BF16 else F32_BOUND
+        name = f"({ci},{co}) @{n}^3" + (" f32" if dtype == F32 else "")
+        x = torch.randn(ci, n, n, n, device=dev, generator=gen).to(dtype)
+        g = torch.randn(co, n, n, n, device=dev, generator=gen).to(dtype)
+        before = dict(conv_cf.LAUNCHES)
         got = conv_cf.conv3d_cf_wgrad(x, g)
         again = conv_cf.conv3d_cf_wgrad(x, g)
         torch.cuda.synchronize()
-        require(conv_cf.LAUNCHES["wgrad"] == before + 2, name)
+        launched = {k: conv_cf.LAUNCHES[k] - before[k] for k in before
+                    if conv_cf.LAUNCHES[k] != before[k]}
+        require(launched == {kernel: 2}, (name, launched))
         want = conv_cf.conv3d_cf_wgrad_reference(x, g)
         torch.cuda.synchronize()
         require(got.shape == want.shape == (3, 3, 3, ci, co), name)
@@ -226,14 +280,16 @@ def check_wgrad(conv_cf, gen):
         library_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
             x[None], (co, ci, 3, 3, 3), g[None], padding=1), 5)
         flops = 2 * 27 * ci * co * n ** 3
-        bound_ms, bound_by = bound(flops, 2 * (ci + co) * n ** 3 + 4 * 27 * ci * co)
-        print(f"  wgrad {name:18s} max_abs_err {err:.3e} rel {rel:.3e} (tolerance "
-              f"{WGRAD_BOUND:.0e})  bit-equal repeat {same}  kernel {ms:.3f} ms "
+        size = 2 if dtype == BF16 else 4
+        bound_ms, bound_by = bound(flops, size * (ci + co) * n ** 3 + 4 * 27 * ci * co, dtype)
+        print(f"  {kernel:9s} {name:20s} max_abs_err {err:.3e} rel {rel:.3e} (tolerance "
+              f"{tol:.0e})  bit-equal repeat {same}  kernel {ms:.3f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.3f} ms  library "
               f"{library_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})", flush=True)
-        require(np.isfinite(rel) and rel <= WGRAD_BOUND, (name, rel))
+        require(np.isfinite(rel) and rel <= tol, (name, rel))
         require(same, (name, "repeat differs"))
-        results.append(dict(kernel="wgrad", shape=name, fused="", max_abs_err=err,
+        results.append(dict(kernel=kernel, shape=name, fused="", dtype=str(dtype)[6:],
+                            max_abs_err=err,
                             rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound_ms, bound_by=bound_by))
         del x, g, got, again, want
@@ -276,7 +332,7 @@ def make_train_data(root, rng):
     return lab_dir
 
 
-def train_args(root, model_dir, epochs):
+def train_args(root, model_dir, epochs, dtype="bfloat16", steps=3):
     """cli.train arguments of bench_train.py's tutorial-7 configuration."""
     return [os.path.join(root, "labels"), model_dir, os.path.join(root, "prior_means.npy"),
             os.path.join(root, "prior_stds.npy"), os.path.join(root, "generation_labels.npy"),
@@ -286,8 +342,8 @@ def train_args(root, model_dir, epochs):
             "--bias_field_std", "0.2", "--work_with_residual_channel", "1",
             "--loss_cropping", "96", "--lr", "1e-4", "--batchsize", "1",
             "--scaling_bounds", "0.1", "--rotation_bounds", "8", "--shearing_bounds", "0.01",
-            "--translation_bounds", "False", "--compute_dtype", "bfloat16",
-            "--epochs", str(epochs), "--steps_per_epoch", "3", "--seed", "0"]
+            "--translation_bounds", "False", "--compute_dtype", dtype,
+            "--epochs", str(epochs), "--steps_per_epoch", str(steps), "--seed", "0"]
 
 
 def train_phase(conv_cf, rng):
@@ -329,7 +385,25 @@ def train_phase(conv_cf, rng):
         summary = dict(loss_curve=curve, launches=launches, seconds=train_s,
                        epoch_step_s=epoch_step_s, h5_exported=h5)
         summary.update(gradient_check(resumed["model"], root))
-    return {"launches": launches, "summary": summary}
+
+        phase(f"main path: train in float32 ({TRAIN_F32_STEPS} steps, the CUDA-core kernels)")
+        f32_dir = os.path.join(root, "model_f32")
+        conv_cf.reset_launch_counts()
+        t0 = time.perf_counter()
+        f32 = train_cli.main(train_args(root, f32_dir, 1, "float32", TRAIN_F32_STEPS),
+                             log_fn=lambda line: print("  " + line, flush=True))
+        torch.cuda.synchronize()
+        f32_s = time.perf_counter() - t0
+        f32_launches = dict(conv_cf.LAUNCHES)
+        print(f"  main(): 1 epoch x {TRAIN_F32_STEPS} steps in {f32_s:.2f} s; launches "
+              f"{f32_launches} (expected {TRAIN_F32_LAUNCHES} per step)")
+        require(f32_launches == {k: v * TRAIN_F32_STEPS for k, v in TRAIN_F32_LAUNCHES.items()},
+                f32_launches)
+        curve = f32["loss_curve"]
+        require(len(curve) == 1 and np.isfinite(curve[0]), curve)
+        summary["float32"] = dict(seconds=f32_s, launches=f32_launches,
+                                  loss_curve=f32["loss_curve"])
+    return {"launches": launches, "f32_launches": f32_launches, "summary": summary}
 
 
 def gradient_check(trained, root):
@@ -477,6 +551,27 @@ def phantom(shape, zooms, ct, rng):
     return vol
 
 
+def profile_predict_volume(predictor, vol, aff):
+    """Where one warm predict_volume's time goes: device time by kind
+    (torch.profiler) over its wall, and the device's idle share."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor.predict_volume(vol, aff)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"H-fwd-mma": "conv3d_fwd_mma_kernel", "H-first": "conv3d_first_kernel",
+             "copy host->device": "Memcpy HtoD", "copy device->host": "Memcpy DtoH"}
+    device_ms = dict.fromkeys([*kinds, "other"], 0.0)
+    for ev in prof.key_averages():
+        ms = (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+        device_ms[next((k for k, tag in kinds.items() if tag in ev.key), "other")] += ms
+    idle = 1.0 - sum(device_ms.values()) / wall_ms
+    print(f"  profiled predict_volume: wall {wall_ms:.1f} ms, device ms "
+          f"{ {k: round(v, 3) for k, v in device_ms.items()} }, device idle {idle:.1%}")
+    return wall_ms, device_ms, idle
+
+
 def large_fov_phase(predict, conv_cf, weights, tmp, rng):
     """``predict.main`` on a 1 mm CT phantom that pads to 192x256x512, then
     its warm prepare, network and predict_volume times, peak memory, and the
@@ -525,22 +620,7 @@ def large_fov_phase(predict, conv_cf, weights, tmp, rng):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
-    # where one warm predict_volume's time goes: device time by kind over its wall
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ct.predict_volume(vol, aff)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"H-fwd": "conv3d_fwd_kernel", "H-first": "conv3d_first_kernel",
-             "copy host->device": "Memcpy HtoD", "copy device->host": "Memcpy DtoH"}
-    device_ms = dict.fromkeys([*kinds, "other"], 0.0)
-    for ev in prof.key_averages():
-        ms = (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
-        device_ms[next((k for k, tag in kinds.items() if tag in ev.key), "other")] += ms
-    idle = 1.0 - sum(device_ms.values()) / wall_ms
-    print(f"  profiled predict_volume: wall {wall_ms:.1f} ms, device ms "
-          f"{ {k: round(v, 3) for k, v in device_ms.items()} }, device idle {idle:.1%}")
+    wall_ms, device_ms, idle = profile_predict_volume(ct, vol, aff)
     with torch.no_grad():
         fast = ct.network(x)
         plain = 0.5 * ct.model(x) + 0.5 * torch.flip(ct.model(torch.flip(x, [2])), [2])
@@ -662,9 +742,7 @@ def main():
     phase("build")
     seconds = conv_cf.build_kernels()
     log = (cuda_build.BUILD_DIR / cuda_build.source_hash() / "build.log").read_text()
-    regs = sorted({line.split(":", 1)[1].strip() for line in log.splitlines()
-                   if "registers" in line})
-    print(f"  nvcc build {seconds:.1f} s (0 = reused); ptxas: {regs}")
+    print(f"  nvcc build {seconds:.1f} s (0 = reused); ptxas: {ptxas_summary(log)}")
 
     phase("kernels vs plain")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -740,6 +818,10 @@ def main():
             max_out = float(255 * (fast - plain).abs().max())
             timings[fname] = dict(padded=list(x.shape[2:]), predict_volume_s=secs,
                                   network_tta_ms=net_ms, net_rel_l2=rel)
+            if fname == "t1_256.nii.gz":
+                wall_ms, device_ms, idle = profile_predict_volume(warm, vol, aff)
+                timings[fname].update(profiled_wall_ms=wall_ms, device_ms=device_ms,
+                                      device_idle=idle)
             print(f"  {fname}: padded {tuple(x.shape[2:])}  predict_volume {secs} s  "
                   f"network (2 forwards) {net_ms:.1f} ms  vs plain: relative L2 {rel:.3e} "
                   f"(bound {NET_BOUND:.0e}), max |diff| x255 = {max_out:.3f}")
@@ -753,13 +835,16 @@ def main():
 
     train = train_phase(conv_cf, rng)
     path_launches = {"predict": launches, "predict_large_fov": large_fov["launches"],
-                     "hyperfine": hyperfine["launches"], "train": train["launches"]}
+                     "hyperfine": hyperfine["launches"], "train": train["launches"],
+                     "train_float32": train["f32_launches"]}
 
     kernels = []
+    fwd_also = [f"{PALLAS}:920", f"{PALLAS}:1297", f"{PALLAS}:127"]
     for kernel, source, replaces, also in (
             ("first", SOURCE, f"{PALLAS}:569", []),
-            ("fwd", SOURCE, f"{PALLAS}:270", [f"{PALLAS}:920", f"{PALLAS}:1297",
-                                              f"{PALLAS}:127"]),
+            ("fwd_mma", MMA_SOURCE, f"{PALLAS}:270", fwd_also),
+            ("wgrad_mma", WGRAD_MMA_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"]),
+            ("fwd", SOURCE, f"{PALLAS}:270", fwd_also),
             ("wgrad", WGRAD_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"])):
         mine = [c for c in checks if c["kernel"] == kernel]
         timed = next(c for c in mine if c["shape"] == TIMED[kernel])
@@ -770,7 +855,7 @@ def main():
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=timed["ms"],
             plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
             library_ms=timed["library_ms"], timed_shape=timed["shape"],
-            checks=[{k: c[k] for k in ("shape", "fused", "rel_err", "ms", "plain_ms",
+            checks=[{k: c[k] for k in ("shape", "fused", "dtype", "rel_err", "ms", "plain_ms",
                                        "library_ms", "bound_ms", "bound_by")}
                     for c in mine]))
     print(json.dumps({"timings": timings, "main_seconds": main_s,

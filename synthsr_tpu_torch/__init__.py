@@ -12,10 +12,13 @@ Modules, each beside its JAX counterpart of the same path unless named:
 - ``ops/conv_cf.py`` (``ops/conv_pallas.py``'s forward and weight-gradient
   entries): ``conv3d_cf`` / ``conv3d_cf_wgrad`` dispatch, launch counts and
   their plain versions;
-- ``csrc/conv3d_cf.cu``: H-first and H-fwd, CUDA C++ for sm_90a, replacing
-  ``_first_kernel``, ``_plane_kernel``, ``conv3d_cf_grouped``,
-  ``_flat_kernel`` and ``_kernel``; ``csrc/conv3d_wgrad.cu``: H-wgrad,
-  replacing ``_wgrad_kernel`` and ``_wgrad_flat_kernel``;
+- ``csrc/``: CUDA C++ for sm_90a.  ``conv3d_fwd_mma.cu`` (H-fwd-mma, bf16
+  on the tensor cores) and ``conv3d_cf.cu``'s H-fwd (float32) replace
+  ``_plane_kernel``, ``conv3d_cf_grouped``, ``_flat_kernel`` and ``_kernel``;
+  ``conv3d_cf.cu``'s H-first replaces ``_first_kernel``;
+  ``conv3d_wgrad_mma.cu`` (H-wgrad-mma, bf16) and ``conv3d_wgrad.cu``
+  (H-wgrad, float32) replace ``_wgrad_kernel`` and ``_wgrad_flat_kernel``;
+  ``mma_common.cuh`` holds what the two mma kernels share;
 - ``ops/cuda_build.py`` (no counterpart: Pallas compiles in ``jit``): nvcc
   build on first use, ctypes load;
 - ``ops/conv_train.py``, ``ops/linops.py``, ``ops/blur.py``,

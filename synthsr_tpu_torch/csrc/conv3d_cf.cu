@@ -53,8 +53,10 @@ __device__ __forceinline__ float activate(float v, int act) {
 //
 // Bound: at the U-Net's widths (24..384 channels) the conv does 27*cin FMAs
 // per output value against 2 bytes read per input value, so it is bound by
-// arithmetic; this first version uses the CUDA cores' float32 FMA (67 TFLOP/s
-// published peak), not the tensor cores (mma.sync / wgmma are later work).
+// arithmetic; this kernel uses the CUDA cores' float32 FMA (67 TFLOP/s
+// published peak).  It runs float32 activations only (instantiated for
+// T = float); bf16 activations run on the tensor cores in H-fwd-mma
+// (conv3d_fwd_mma.cu).
 // Design: one block owns one output plane z, an 8 x 32 (H x W) tile of it and
 // CT = 8*NG output channels.  It walks the input channels in chunks of FWD_CK:
 // the chunk's (3, 10, 34) halo tile, zero-filled outside the volume, and its
@@ -334,16 +336,6 @@ int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_fwd_ng(const FwdArgs& a, int ng, cudaStream_t stream) {
-  switch (ng) {
-    case 1: return launch_fwd<T, 1>(a, stream);
-    case 2: return launch_fwd<T, 2>(a, stream);
-    case 3: return launch_fwd<T, 3>(a, stream);
-    case 4: return launch_fwd<T, 4>(a, stream);
-  }
-  return (int)cudaErrorInvalidValue;
-}
 
 template <typename T, int CIN>
 int launch_first(const void* x, int d, int h, int w, const float* wpk, int cout, int cout_pad,
@@ -366,13 +358,20 @@ int conv3d_fwd_chunk() { return FWD_CK; }
 
 const char* conv3d_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// float32 activations only: bf16 goes to H-fwd-mma (conv3d_fwd_mma.cu).
 int conv3d_fwd_launch(const void* src0, int c0, const void* src1, int c1, int d, int h, int w,
                       const float* wpk, int cout, int cout_pad, int ng, const float* bias,
-                      const void* accum, const float* post, const float* head, int act, int bf16,
+                      const void* accum, const float* post, const float* head, int act,
                       void* out, void* stream) {
   const FwdArgs a{src0, src1, c0, c1, d, h, w, wpk, cout, cout_pad, bias, accum, post, head, act, out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fwd_ng<__nv_bfloat16>(a, ng, s) : launch_fwd_ng<float>(a, ng, s);
+  switch (ng) {
+    case 1: return launch_fwd<float, 1>(a, s);
+    case 2: return launch_fwd<float, 2>(a, s);
+    case 3: return launch_fwd<float, 3>(a, s);
+    case 4: return launch_fwd<float, 4>(a, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int conv3d_first_launch(const void* x, int cin, int d, int h, int w, const float* wpk, int cout,

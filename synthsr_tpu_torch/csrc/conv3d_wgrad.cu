@@ -7,10 +7,10 @@
 //   dw[dz, dy, dx, ci, co] = sum_{z,h,w} x[ci, z+dz-1, h+dy-1, w+dx-1] * g[co, z, h, w]
 //
 // with zero padding at every face, done by predicate while staging (nothing
-// is padded in device memory).  x (ci, D, H, W) and g (co, D, H, W) are both
-// bf16 or both float32 (the host rounds g to x's type first, as K6 does);
-// every product and sum is float32.  The launcher allocates nothing, runs on
-// the stream it is given and returns cudaGetLastError() (0 = launched).
+// is padded in device memory).  This CUDA-core kernel takes float32 x
+// (ci, D, H, W) and g (co, D, H, W); bf16 operands run on the tensor cores
+// in H-wgrad-mma (conv3d_wgrad_mma.cu).  Every product and sum is float32.
+// The launcher allocates nothing, runs on the stream it is given and returns cudaGetLastError() (0 = launched).
 //
 // Bound: each output sums over the whole volume (at 128^3 and (ci, co) =
 // (4, 24) that is 2 592 outputs over 2.1 M voxels), so the work has to be
@@ -32,13 +32,14 @@
 // launch sums the partials over the splits in a fixed order, so dw is
 // bit-reproducible run to run.  Volume offsets are 64-bit.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+extern "C" int conv3d_wgrad_reduce(const float* partial, int n_split, int ci, int co, int ci_pad,
+                                   int co_pad, float* dw, void* stream);
 
 namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 constexpr int WG_CK = 8;        // input channels per block
 constexpr int WG_MAXVOX = 128;  // voxels per tile: th * tw <= 128
@@ -187,31 +188,17 @@ __global__ void conv3d_wgrad_reduce_kernel(const float* __restrict__ partial, in
   dw[i] = s;
 }
 
-template <typename T, int NG>
+template <int NG>
 int launch_wgrad(const WgradArgs& a, float* dw, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)WG_MAXVOX * 8 * NG + (size_t)WG_CK * 3 * a.plane);
-  int err = (int)cudaFuncSetAttribute(conv3d_wgrad_kernel<T, NG>,
+  int err = (int)cudaFuncSetAttribute(conv3d_wgrad_kernel<float, NG>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   const dim3 grid(a.n_split, a.ci_pad / WG_CK, a.co_pad / (8 * NG));
-  conv3d_wgrad_kernel<T, NG><<<grid, WG_CK * 3 * NG, smem, stream>>>(a);
+  conv3d_wgrad_kernel<float, NG><<<grid, WG_CK * 3 * NG, smem, stream>>>(a);
   err = (int)cudaGetLastError();
   if (err) return err;
-  const long long n = 27LL * a.ci * a.co;
-  conv3d_wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      a.partial, a.n_split, a.ci, a.co, a.ci_pad, a.co_pad, dw);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_wgrad_ng(const WgradArgs& a, int ng, float* dw, cudaStream_t stream) {
-  switch (ng) {
-    case 1: return launch_wgrad<T, 1>(a, dw, stream);
-    case 2: return launch_wgrad<T, 2>(a, dw, stream);
-    case 3: return launch_wgrad<T, 3>(a, dw, stream);
-    case 4: return launch_wgrad<T, 4>(a, dw, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  return conv3d_wgrad_reduce(a.partial, a.n_split, a.ci, a.co, a.ci_pad, a.co_pad, dw, stream);
 }
 
 }  // namespace
@@ -223,9 +210,20 @@ extern "C" {
 int conv3d_wgrad_chunk() { return WG_CK; }
 int conv3d_wgrad_max_tile() { return WG_MAXVOX; }
 
+// Sums (n_split, 27, ci_pad, co_pad) partials in split order into dw (27, ci, co);
+// the second pass of both H-wgrad and H-wgrad-mma.
+int conv3d_wgrad_reduce(const float* partial, int n_split, int ci, int co, int ci_pad, int co_pad,
+                        float* dw, void* stream) {
+  const long long n = 27LL * ci * co;
+  conv3d_wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
+                               static_cast<cudaStream_t>(stream)>>>(partial, n_split, ci, co,
+                                                                    ci_pad, co_pad, dw);
+  return (int)cudaGetLastError();
+}
+
+// float32 x and g only: bf16 goes to H-wgrad-mma (conv3d_wgrad_mma.cu).
 int conv3d_wgrad_launch(const void* x, const void* g, int ci, int co, int d, int h, int w, int th,
-                        int tw, int ng, int n_split, float* partial, float* dw, int bf16,
-                        void* stream) {
+                        int tw, int ng, int n_split, float* partial, float* dw, void* stream) {
   if (th * tw > WG_MAXVOX || th < 1 || tw < 1 || n_split < 1) return (int)cudaErrorInvalidValue;
   const int row = tw + 2;
   const int plane = ((th + 2) * row) | 1;  // odd: the 24 (channel, dz) planes of a warp hit 24 banks
@@ -233,7 +231,13 @@ int conv3d_wgrad_launch(const void* x, const void* g, int ci, int co, int d, int
   const int co_pad = (co + 8 * ng - 1) / (8 * ng) * (8 * ng);
   const WgradArgs a{x, g, ci, co, d, h, w, th, tw, row, plane, ci_pad, co_pad, n_split, partial};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_wgrad_ng<__nv_bfloat16>(a, ng, dw, s) : launch_wgrad_ng<float>(a, ng, dw, s);
+  switch (ng) {
+    case 1: return launch_wgrad<1>(a, dw, s);
+    case 2: return launch_wgrad<2>(a, dw, s);
+    case 3: return launch_wgrad<3>(a, dw, s);
+    case 4: return launch_wgrad<4>(a, dw, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

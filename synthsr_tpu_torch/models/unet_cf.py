@@ -3,10 +3,10 @@
 
 Every 3³ conv goes through :func:`synthsr_tpu_torch.ops.conv_cf.conv3d_cf`, at
 every level, so on a card one forward of the shipped net is exactly 1 H-first
-+ 17 H-fwd launches.  The decoder's first conv reads ``[skip, up]`` as two
-sources; the last conv of each decoder level folds its BatchNorm in as
-``post``, and the final level also folds the 1x1x1 likelihood in as ``head``
-(1 label, linear).  Encoder BatchNorm (in the compute dtype, as ``_bn_cf``),
++ 17 H-fwd-mma launches (H-fwd in float32).  The decoder's first conv reads
+``[skip, up]`` as two sources (packed for that split); the last conv of
+each decoder level folds its BatchNorm in as ``post``, and the final level
+also folds the 1x1x1 likelihood in as ``head`` (1 label, linear).  Encoder BatchNorm (in the compute dtype, as ``_bn_cf``),
 max-pool and upsampling are plain torch ops, as they are XLA ops in the JAX
 package.  Activations and skips stay in the compute dtype; each conv sums in
 float32.
@@ -19,8 +19,8 @@ TPU workarounds of the JAX module that are dropped here:
 - the two-executable decoder split ``make_fast_predictor`` (unet_cf.py:374-413),
   against XLA's VMEM prefetch mis-sizing the whole 256³ graph;
 - channel-group chaining through ``accum`` (conv_pallas.py:720-729), which
-  exists only for the Mosaic compile cap: H-fwd sums all 27·C_in taps in
-  float32 in one launch;
+  exists only for the Mosaic compile cap: H-fwd-mma sums all 27·C_in taps
+  in float32 in one launch;
 - the channels-last XLA fallback at the deep levels and the layout switching
   it needs.
 """
@@ -70,11 +70,17 @@ def pack_unet(model: UNet3D, dtype: torch.dtype = torch.bfloat16) -> dict:
     the model's device: per conv its :class:`PackedConv` and bias, per decoder
     level its BatchNorm affine (``post_{level}``), and the ``head``."""
     _check_fast(model)
+    nl, ncpl = model.nb_levels, model.nb_conv_per_level
+    splits = {}  # each decoder's first conv reads [skip, up]
+    for level in range(nl - 1):
+        skip = getattr(model, f"conv_downarm_{nl - 2 - level}_{ncpl - 1}").out_channels
+        up = getattr(model, f"conv_uparm_{nl + level}_0").in_channels - skip
+        splits[f"conv_uparm_{nl + level}_0"] = (skip, up)
     packed = {}
     for name, mod in model.named_children():
         if name.startswith("conv_"):
             w = mod.weight.detach().permute(2, 3, 4, 1, 0)  # OIDHW -> DHWIO
-            packed[name] = (pack_conv(w, dtype), mod.bias.detach().float())
+            packed[name] = (pack_conv(w, dtype, splits.get(name)), mod.bias.detach().float())
     for level in range(model.nb_levels - 1):
         packed[f"post_{level}"] = bn_affine(getattr(model, f"bn_up_{level}"))
     lik = model.likelihood

@@ -19,10 +19,13 @@
 - ``head``: an optional (a (C_out,), b scalar): the 1x1x1 likelihood conv
   folded in after ``post``.
 
-Dispatch, with no fallback: a CPU tensor goes to :func:`conv3d_cf_reference`
-(plain PyTorch); a CUDA tensor launches **H-first** (one source, C_in <= 2, no
-``accum``, no ``head``; replaces K1) or **H-fwd** (everything else; replaces
-K2, K3, K4 and K5) from ``csrc/conv3d_cf.cu``; any other device raises.
+Dispatch, by device and dtype, with no fallback: a CPU tensor goes to
+:func:`conv3d_cf_reference` (plain PyTorch); a CUDA tensor launches
+**H-first** (one source, C_in <= 2, no ``accum``, no ``head``, bf16 or
+float32; replaces K1, ``csrc/conv3d_cf.cu``), else **H-fwd-mma** for bf16
+(tensor cores, ``csrc/conv3d_fwd_mma.cu``; replaces K2, K3, K4 and K5) or
+**H-fwd** for float32 (CUDA cores, ``csrc/conv3d_cf.cu``); any other device
+raises.
 
 K5 (``_kernel``, ``synthsr_tpu/ops/conv_pallas.py:127``, entry ``conv3d_cf``
 :990) is the TPU's blocked conv for the shapes the plane and folded-plane
@@ -32,16 +35,19 @@ the level-0 convs of a large field of view, e.g. 24->24 at 192x256x512 or
 256x384x384 and, unfused, 72->24 at 256x512x256, whose planes (cin·H·W over
 24·256²) pass the other kernels' caps.  H-fwd takes those shapes as it takes
 any other (64-bit offsets; grid (W/32·H/8, D, C_out tiles)), with bias and
-activation fused at every C_in, so no dispatch here depends on them.
+activation fused at every C_in, so no dispatch here depends on them.  H-fwd-mma
+tiles the same way.
 
 ``conv3d_cf_wgrad(x, g)`` is the training backward's weight gradient,
 ``dw[dz, dy, dx, ci, co] = sum x[ci, z+dz-1, h+dy-1, w+dx-1] g[co, z, h, w]``
 (zero padding), (3, 3, 3, ci, co) float32, with ``g`` rounded to ``x.dtype``
 first as K6 does (conv_pallas.py:1230).  The same dispatch: the plain
-:func:`conv3d_cf_wgrad_reference` on a CPU tensor, **H-wgrad** from
-``csrc/conv3d_wgrad.cu`` (replaces K6 and K7) on a CUDA tensor.
+:func:`conv3d_cf_wgrad_reference` on a CPU tensor; on a CUDA tensor
+**H-wgrad-mma** for bf16 (``csrc/conv3d_wgrad_mma.cu``) or **H-wgrad** for
+float32 (``csrc/conv3d_wgrad.cu``), both replacing K6 and K7.
 
-``LAUNCHES`` counts kernel launches per kernel, and nothing else.
+``LAUNCHES`` counts kernel launches per kernel, under its own key, and
+nothing else.
 """
 
 from __future__ import annotations
@@ -53,9 +59,13 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-LAUNCHES = {"first": 0, "fwd": 0, "wgrad": 0}
+LAUNCHES = {"first": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0, "wgrad": 0}
 
 FWD_CHUNK = 8  # input channels per H-fwd chunk (FWD_CK in csrc/conv3d_cf.cu)
+MMA_STEPS = 14  # k16 steps per 8-channel group of H-fwd-mma (FM_STEPS in csrc/conv3d_fwd_mma.cu)
+MMA_TILE = (8, 32)  # H-fwd-mma output tile (H, W) of one plane
+WGRAD_MMA_TILE = (4, 32)  # H-wgrad-mma item (H, W) of one plane
+WGRAD_MMA_BLOCKS_PER_SM = 4  # 96-thread blocks H-wgrad-mma aims to keep on each SM
 WGRAD_CHUNK = 8  # input channels per H-wgrad block (WG_CK in csrc/conv3d_wgrad.cu)
 WGRAD_MAX_TILE = 128  # voxels per H-wgrad tile (WG_MAXVOX)
 _ACT_CODES = {None: 0, "elu": 1, "relu": 2}
@@ -69,8 +79,8 @@ def build_kernels() -> float:
     global _lib
     path, seconds = cuda_build.build()
     lib = cuda_build.load(path)
-    if lib.conv3d_fwd_chunk() != FWD_CHUNK:
-        raise RuntimeError("csrc/conv3d_cf.cu and conv_cf.FWD_CHUNK disagree")
+    if lib.conv3d_fwd_chunk() != FWD_CHUNK or lib.conv3d_fwd_mma_steps() != MMA_STEPS:
+        raise RuntimeError("csrc/conv3d_cf.cu, csrc/conv3d_fwd_mma.cu and conv_cf disagree")
     if (lib.conv3d_wgrad_chunk(), lib.conv3d_wgrad_max_tile()) != (WGRAD_CHUNK, WGRAD_MAX_TILE):
         raise RuntimeError("csrc/conv3d_wgrad.cu and conv_cf.WGRAD_* disagree")
     _lib = lib
@@ -97,17 +107,39 @@ def cout_groups(cout: int) -> int:
     return min(4, -(-cout // 8))
 
 
+def mma_groups(cout: int) -> int:
+    """Output channels per H-fwd-mma block, in n8 tiles: 48 wherever it
+    divides C_out (the halo is staged once per 48 channels), else 24, else up
+    to 32."""
+    if cout % 48 == 0:
+        return 6
+    return cout_groups(cout)
+
+
+def _split_key(splits) -> int:
+    """What fixes the bf16 fragment layout besides C_in and C_out: where the
+    second source starts when the first is not a multiple of 8 (each source
+    is padded to a multiple of 8 channels), else 0."""
+    return splits[0] if len(splits) == 2 and splits[0] % 8 else 0
+
+
 @dataclass(frozen=True)
 class PackedConv:
-    """A conv weight made ready once for both paths.
+    """A conv weight made ready once for the plain version and the kernels.
 
     ``w``: DHWIO float32, values rounded to ``dtype`` (the plain version's
-    operand).  ``packed``: (cin_pad, 27, cout_pad) float32, zero-padded to the
-    kernels' channel chunk and cout tile (the kernels' operand)."""
+    operand).  ``packed``: (cin_pad, 27, cout_pad) float32, zero-padded to
+    the CUDA-core kernels' channel chunk and cout tile (H-first, float32
+    H-fwd); made for float32 and for C_in <= 2, else None.  ``frags``: the
+    bf16 B fragments of H-fwd-mma (see :func:`_mma_fragments`), for bf16,
+    else None; ``splits`` are the source channel counts they were laid out
+    for."""
     w: torch.Tensor
-    packed: torch.Tensor
+    packed: torch.Tensor | None
+    frags: torch.Tensor | None
     dtype: torch.dtype
     ng: int
+    splits: tuple
 
     @property
     def cin(self) -> int:
@@ -118,21 +150,53 @@ class PackedConv:
         return self.w.shape[4]
 
 
-def pack_conv(w: torch.Tensor, dtype: torch.dtype) -> PackedConv:
+def _mma_fragments(wr: torch.Tensor, splits, ng: int) -> torch.Tensor:
+    """H-fwd-mma's B operand: (n_tiles, groups, MMA_STEPS, ng, 32 lanes, 4)
+    bf16, in the order the kernel's lanes read it.
+
+    K runs over 8-channel groups (each source padded to a multiple of 8 on
+    its own), and within a group over 28 taps (27 and a zero one) paired into
+    k16 steps: step s holds tap 2s at k 0-7 and tap 2s+1 at k 8-15.  Lane
+    4g + tq of n8 tile j holds the mma.m16n8k16 B fragment of output channel
+    tile*8*ng + 8j + g: (k 2tq, 2tq+1) then (k 2tq+8, 2tq+9)."""
+    cout = wr.shape[4]
+    nt = 8 * ng
+    n_tiles = -(-cout // nt)
+    w27 = wr.reshape(27, -1, cout)
+    parts, off = [], 0
+    for c in splits:
+        parts.append(F.pad(w27[:, off:off + c], (0, 0, 0, -c % 8)))
+        off += c
+    wv = F.pad(torch.cat(parts, 1), (0, n_tiles * nt - cout, 0, 0, 0, 1))
+    groups = wv.shape[1] // 8
+    v = wv.reshape(MMA_STEPS, 2, groups, 4, 2, n_tiles, ng, 8)  # s, half, group, tq, e, tile, j, g
+    return v.permute(5, 2, 0, 6, 7, 3, 1, 4).to(torch.bfloat16).contiguous()
+
+
+def pack_conv(w: torch.Tensor, dtype: torch.dtype, splits=None) -> PackedConv:
     """Round a DHWIO 3³ kernel to ``dtype`` and arrange it for the kernels,
-    on the weight's own device."""
+    on the weight's own device.  ``splits``: the channel counts of the sources
+    it will read (default: one source)."""
     if w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
         raise ValueError(f"expected a (3, 3, 3, cin, cout) kernel, got {tuple(w.shape)}")
     if dtype not in _DTYPES:
         raise ValueError(f"unsupported compute dtype {dtype}")
     cin, cout = w.shape[3], w.shape[4]
+    splits = (cin,) if splits is None else tuple(int(c) for c in splits)
+    if sum(splits) != cin or not 1 <= len(splits) <= 2:
+        raise ValueError(f"source channels {splits} do not add up to the kernel's {cin}")
     wr = w.detach().to(dtype).to(torch.float32).contiguous()
-    ng = cout_groups(cout)
-    cin_pad = -(-cin // FWD_CHUNK) * FWD_CHUNK
-    cout_pad = -(-cout // (8 * ng)) * (8 * ng)
-    packed = torch.zeros((cin_pad, 27, cout_pad), dtype=torch.float32, device=w.device)
-    packed[:cin, :, :cout] = wr.reshape(27, cin, cout).permute(1, 0, 2)
-    return PackedConv(wr, packed, dtype, ng)
+    bf16 = dtype == torch.bfloat16
+    packed = None
+    if not bf16 or cin <= 2:
+        ng = cout_groups(cout)
+        cin_pad = -(-cin // FWD_CHUNK) * FWD_CHUNK
+        cout_pad = -(-cout // (8 * ng)) * (8 * ng)
+        packed = torch.zeros((cin_pad, 27, cout_pad), dtype=torch.float32, device=w.device)
+        packed[:cin, :, :cout] = wr.reshape(27, cin, cout).permute(1, 0, 2)
+    ng = mma_groups(cout) if bf16 else cout_groups(cout)
+    frags = _mma_fragments(wr, splits, ng) if bf16 else None
+    return PackedConv(wr, packed, frags, dtype, ng, splits)
 
 
 def _sources(x):
@@ -209,15 +273,19 @@ def _f32_on(t, dev, shape, name):
     return t
 
 
+def _aligned(*ts) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
 def _launch(srcs, w, bias, activation, post, head, accum):
     dtype = srcs[0].dtype
     dev = srcs[0].device
-    pc = w if isinstance(w, PackedConv) else pack_conv(w.to(dev), dtype)
+    cins = [s.shape[0] for s in srcs]
+    pc = w if isinstance(w, PackedConv) else pack_conv(w.to(dev), dtype, cins)
     if pc.dtype != dtype:
         raise ValueError(f"weights packed for {pc.dtype}, activations are {dtype}")
-    if pc.packed.device != dev:
-        raise ValueError(f"weights on {pc.packed.device}, activations on {dev}")
-    cins = [s.shape[0] for s in srcs]
+    if pc.w.device != dev:
+        raise ValueError(f"weights on {pc.w.device}, activations on {dev}")
     cin, cout = sum(cins), pc.cout
     if pc.cin != cin:
         raise ValueError(f"kernel expects {pc.cin} input channels, got {cin}")
@@ -248,14 +316,12 @@ def _launch(srcs, w, bias, activation, post, head, accum):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptr = (lambda t: None if t is None else t.data_ptr())
-        bf16 = int(dtype == torch.bfloat16)
         act = _ACT_CODES[activation]
-        cout_pad = pc.packed.shape[2]
         if len(srcs) == 1 and cin <= 2 and accum is None and head is None:
             out = torch.empty((cout, d, h, wd), dtype=dtype, device=dev)
             err = lib.conv3d_first_launch(
-                ptr(srcs[0]), cin, d, h, wd, ptr(pc.packed), cout, cout_pad,
-                ptr(b), ptr(p), act, bf16, ptr(out), stream)
+                ptr(srcs[0]), cin, d, h, wd, ptr(pc.packed), cout, pc.packed.shape[2],
+                ptr(b), ptr(p), act, int(dtype == torch.bfloat16), ptr(out), stream)
             _check(lib, err, "H-first")
             LAUNCHES["first"] += 1
             return out
@@ -264,10 +330,20 @@ def _launch(srcs, w, bias, activation, post, head, accum):
         else:
             out = torch.empty((cout, d, h, wd), dtype=dtype, device=dev)
         src1 = srcs[1] if len(srcs) == 2 else None
+        c1 = cins[1] if src1 is not None else 0
+        if dtype == torch.bfloat16:
+            if _split_key(pc.splits) != _split_key(cins):
+                raise ValueError(f"weights packed for sources {pc.splits}, got {tuple(cins)}")
+            vec = int(wd % 8 == 0 and _aligned(*srcs, accum, out))
+            err = lib.conv3d_fwd_mma_launch(
+                ptr(srcs[0]), cins[0], ptr(src1), c1, d, h, wd, ptr(pc.frags), cout, pc.ng,
+                ptr(b), ptr(accum), ptr(p), ptr(hd), act, vec, ptr(out), stream)
+            _check(lib, err, "H-fwd-mma")
+            LAUNCHES["fwd_mma"] += 1
+            return out
         err = lib.conv3d_fwd_launch(
-            ptr(srcs[0]), cins[0], ptr(src1), cins[1] if src1 is not None else 0,
-            d, h, wd, ptr(pc.packed), cout, cout_pad, pc.ng, ptr(b), ptr(accum),
-            ptr(p), ptr(hd), act, bf16, ptr(out), stream)
+            ptr(srcs[0]), cins[0], ptr(src1), c1, d, h, wd, ptr(pc.packed), cout,
+            pc.packed.shape[2], pc.ng, ptr(b), ptr(accum), ptr(p), ptr(hd), act, ptr(out), stream)
         _check(lib, err, "H-fwd")
         LAUNCHES["fwd"] += 1
         return out
@@ -304,22 +380,42 @@ def _pow2_ceil(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def wgrad_plan(ci: int, co: int, d: int, h: int, w: int, n_sm: int):
-    """H-wgrad's launch shape: (th, tw, ng, n_split).
+@dataclass(frozen=True)
+class WgradPlan:
+    """A weight-gradient launch: tiles of ``th`` x ``tw`` voxels of one plane,
+    ``co_tile`` output channels per block, the volume's (plane, tile) items
+    split over ``n_split`` blocks per (8-channel group of x, co tile)."""
+    th: int
+    tw: int
+    co_tile: int
+    n_split: int
 
-    Tiles of th x tw <= WGRAD_MAX_TILE voxels, 8 <= tw <= 32; ``ng`` groups of
-    8 output channels per block (:func:`cout_groups`); the volume's
-    (z-plane, tile) items are split over ``n_split`` blocks per (ci chunk,
-    co tile) so that about eight blocks per SM are launched (registers and
-    shared memory hold six 72-thread blocks per SM; two per SM left the card
-    at 6 TFLOP/s)."""
-    tw = min(32, max(8, _pow2_ceil(w)))
-    th = max(1, min(WGRAD_MAX_TILE // tw, _pow2_ceil(h)))
-    ng = cout_groups(co)
+
+def wgrad_plan(ci: int, co: int, d: int, h: int, w: int, n_sm: int,
+               dtype: torch.dtype) -> WgradPlan:
+    """The launch shape of H-wgrad-mma (bf16) or H-wgrad (float32).
+
+    H-wgrad-mma: items of 4 x 32 voxels (K = 128 per item), co tiles of 16·mt
+    with mt = 3 where 48 divides C_out, else 2 (1 for C_out <= 16), and
+    enough splits for WGRAD_MMA_BLOCKS_PER_SM blocks per SM, the number its
+    registers and shared memory keep resident, so the card runs one even
+    wave.  H-wgrad: tiles of th x tw <= WGRAD_MAX_TILE voxels, 8 <= tw <= 32;
+    ``cout_groups`` groups of 8 output channels; about eight blocks per SM
+    (registers and shared memory hold six 72-thread blocks per SM; two per
+    SM left the card at 6 TFLOP/s)."""
+    if dtype == torch.bfloat16:
+        th, tw = WGRAD_MMA_TILE
+        co_tile = 48 if co % 48 == 0 else (32 if co > 16 else 16)
+        per_sm = WGRAD_MMA_BLOCKS_PER_SM
+    else:
+        tw = min(32, max(8, _pow2_ceil(w)))
+        th = max(1, min(WGRAD_MAX_TILE // tw, _pow2_ceil(h)))
+        co_tile = 8 * cout_groups(co)
+        per_sm = 8
     items = d * -(-w // tw) * -(-h // th)
-    pairs = -(-ci // WGRAD_CHUNK) * -(-co // (8 * ng))
-    n_split = max(1, min(items, -(-8 * n_sm // pairs)))
-    return th, tw, ng, n_split
+    pairs = -(-ci // WGRAD_CHUNK) * -(-co // co_tile)
+    n_split = max(1, min(items, -(-per_sm * n_sm // pairs)))
+    return WgradPlan(th, tw, co_tile, n_split)
 
 
 def conv3d_cf_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -333,18 +429,26 @@ def conv3d_cf_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     ci, d, h, wd = x.shape
     co = g.shape[0]
-    th, tw, ng, n_split = wgrad_plan(ci, co, d, h, wd,
-                                     torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan = wgrad_plan(ci, co, d, h, wd,
+                      torch.cuda.get_device_properties(dev).multi_processor_count, x.dtype)
     ci_pad = -(-ci // WGRAD_CHUNK) * WGRAD_CHUNK
-    co_pad = -(-co // (8 * ng)) * (8 * ng)
-    partial = torch.empty((n_split, 27, ci_pad, co_pad), dtype=torch.float32, device=dev)
+    co_pad = -(-co // plan.co_tile) * plan.co_tile
+    partial = torch.empty((plan.n_split, 27, ci_pad, co_pad), dtype=torch.float32, device=dev)
     dw = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.conv3d_wgrad_launch(x.data_ptr(), g.data_ptr(), ci, co, d, h, wd, th, tw, ng,
-                                      n_split, partial.data_ptr(), dw.data_ptr(),
-                                      int(x.dtype == torch.bfloat16), stream)
+        if x.dtype == torch.bfloat16:
+            vec = int(wd % 8 == 0 and _aligned(x, g))
+            err = lib.conv3d_wgrad_mma_launch(x.data_ptr(), g.data_ptr(), ci, co, d, h, wd,
+                                              plan.co_tile // 16, plan.n_split, vec,
+                                              partial.data_ptr(), dw.data_ptr(), stream)
+            _check(lib, err, "H-wgrad-mma")
+            LAUNCHES["wgrad_mma"] += 1
+            return dw
+        err = lib.conv3d_wgrad_launch(x.data_ptr(), g.data_ptr(), ci, co, d, h, wd, plan.th,
+                                      plan.tw, plan.co_tile // 8, plan.n_split,
+                                      partial.data_ptr(), dw.data_ptr(), stream)
     _check(lib, err, "H-wgrad")
     LAUNCHES["wgrad"] += 1
     return dw

@@ -22,19 +22,25 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("conv3d_cf.cu", "conv3d_wgrad.cu")
+SOURCES = ("conv3d_cf.cu", "conv3d_wgrad.cu", "conv3d_fwd_mma.cu", "conv3d_wgrad_mma.cu")
+HEADERS = ("mma_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "conv3d_fwd_launch": ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P,
-                           _P, _P, _I, _I, _P, _P], _I),
+                           _P, _P, _I, _P, _P], _I),
+    "conv3d_fwd_mma_launch": ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
+                               _P, _P, _I, _I, _P, _P], _I),
     "conv3d_first_launch": ([_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I,
                              _P, _P], _I),
     "conv3d_wgrad_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                             _I, _P], _I),
+                             _P], _I),
+    "conv3d_wgrad_mma_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                 _P], _I),
     "conv3d_fwd_chunk": ([], _I),
+    "conv3d_fwd_mma_steps": ([], _I),
     "conv3d_wgrad_chunk": ([], _I),
     "conv3d_wgrad_max_tile": ([], _I),
     "conv3d_error_string": ([_I], ctypes.c_char_p),
@@ -56,7 +62,7 @@ def find_nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -75,7 +81,7 @@ def build() -> tuple[Path, float]:
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = f"tmp{os.getpid()}"
     objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC_DIR / s)]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o), str(CSRC_DIR / s)]
             for s, o in zip(SOURCES, objs)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

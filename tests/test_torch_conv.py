@@ -2,7 +2,7 @@
 Pallas conv family, run in interpret mode on the same numpy inputs.
 
 On the CPU ``conv3d_cf`` is its plain version, so these tests pin the
-semantics both CUDA kernels are held to on the card (chip_smoke.py and the
+semantics the CUDA kernels are held to on the card (chip_smoke.py and the
 ``cuda``-marked test below): SAME padding, multi-source inputs, ``accum``,
 bias, activation, ``post`` affine and the folded ``head``, in the JAX order.
 JAX is imported inside the tests that compare against it, so the ``cuda``
@@ -122,28 +122,74 @@ def test_cpu_dispatch_is_plain_and_launches_nothing():
     got = conv3d_cf(x, pack_conv(w, torch.float32), activation="elu")
     want = conv3d_cf_reference(x, w, activation="elu")
     assert torch.equal(got, want)
-    assert LAUNCHES == {"first": 0, "fwd": 0, "wgrad": 0}
+    assert LAUNCHES == {"first": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0, "wgrad": 0}
     with pytest.raises(ValueError):
         conv3d_cf(x.to("meta"), w.to("meta"))
 
 
 @pytest.mark.parametrize("cin,cout", [(1, 24), (2, 8), (13, 40), (72, 24)])
 def test_pack_conv_layout(cin, cout):
-    """The kernels' weight layout: (cin_pad, 27, cout_pad), tap = kd*9+kh*3+kw,
-    zero padding to the channel chunk and the cout tile, values rounded to
-    the compute dtype."""
+    """The kernels' weight layouts, values rounded to the compute dtype.
+
+    float32 (H-fwd) and C_in <= 2 (H-first): (cin_pad, 27, cout_pad),
+    tap = kd*9+kh*3+kw, zero padding to the channel chunk and the cout tile.
+    bf16 (H-fwd-mma): the B fragments (n_tiles, groups, steps, ng, lanes, 4):
+    unpacked, step s of group k holds tap 2s (k 0-7) and tap 2s+1 (k 8-15) of
+    channels 8k..8k+7, lane 4g+tq output channel 8j+g, k 2tq, 2tq+1, 2tq+8,
+    2tq+9; everything past the weight is zero."""
     rng = np.random.default_rng(cin)
     w = _t(rng.normal(size=(3, 3, 3, cin, cout)))
-    pc = pack_conv(w, torch.bfloat16)
-    ng = conv_cf.cout_groups(cout)
-    cin_pad, taps, cout_pad = pc.packed.shape
-    assert taps == 27 and cin_pad % conv_cf.FWD_CHUNK == 0 and cout_pad % (8 * ng) == 0
-    assert cin_pad - cin < conv_cf.FWD_CHUNK and cout_pad - cout < 8 * ng
-    wr = w.to(torch.bfloat16).float()
-    for kd, kh, kw in ((0, 0, 0), (1, 2, 0), (2, 1, 2)):
-        assert torch.equal(pc.packed[:cin, kd * 9 + kh * 3 + kw, :cout], wr[kd, kh, kw])
-    assert not pc.packed[cin:].any() and not pc.packed[:, :, cout:].any()
-    assert torch.equal(pc.w, wr)
+    for dtype in (torch.float32, torch.bfloat16):
+        pc = pack_conv(w, dtype)
+        wr = w.to(dtype).float()
+        assert torch.equal(pc.w, wr) and pc.splits == (cin,)
+        if dtype == torch.float32 or cin <= 2:
+            ng = conv_cf.cout_groups(cout)
+            cin_pad, taps, cout_pad = pc.packed.shape
+            assert taps == 27 and cin_pad % conv_cf.FWD_CHUNK == 0 and cout_pad % (8 * ng) == 0
+            assert cin_pad - cin < conv_cf.FWD_CHUNK and cout_pad - cout < 8 * ng
+            for kd, kh, kw in ((0, 0, 0), (1, 2, 0), (2, 1, 2)):
+                assert torch.equal(pc.packed[:cin, kd * 9 + kh * 3 + kw, :cout], wr[kd, kh, kw])
+            assert not pc.packed[cin:].any() and not pc.packed[:, :, cout:].any()
+        else:
+            assert pc.packed is None
+        if dtype == torch.float32:
+            assert pc.frags is None
+            continue
+        ng = conv_cf.mma_groups(cout)
+        n_tiles, groups = -(-cout // (8 * ng)), -(-cin // 8)
+        f = pc.frags
+        assert f.dtype == torch.bfloat16
+        assert f.shape == (n_tiles, groups, conv_cf.MMA_STEPS, ng, 8, 4, 2, 2)
+        # (tile, k, s, j, g, tq, half, e) -> taps (28), channels, cout
+        full = f.float().permute(2, 6, 1, 5, 7, 0, 3, 4).reshape(28, 8 * groups, 8 * ng * n_tiles)
+        assert torch.equal(full[:27, :cin, :cout], wr.reshape(27, cin, cout))
+        assert not full[27].any() and not full[:, cin:].any() and not full[:, :, cout:].any()
+        lane = 4 * 3 + 1  # g = 3, tq = 1: b0 = k (2, 3), b1 = k (10, 11), i.e. taps 2s and 2s+1
+        s, j = 5, ng - 1
+        got = f[0, 0, s, j].reshape(32, 4)[lane].float()
+        want = torch.stack([wr.reshape(27, cin, cout)[tap, c, 8 * j + 3] if c < cin
+                            and 8 * j + 3 < cout else torch.tensor(0.0)
+                            for tap in (2 * s, 2 * s + 1) for c in (2, 3)])
+        assert torch.equal(got, want)
+
+
+def test_pack_conv_pads_each_source_to_eight():
+    """Two sources of 5 and 11 channels: 1 + 2 groups, the first source's
+    channels 5-7 zero; the layout records the split, and a launch with
+    another split is refused before anything runs."""
+    rng = np.random.default_rng(9)
+    w = _t(rng.normal(size=(3, 3, 3, 16, 24)))
+    pc = pack_conv(w, torch.bfloat16, (5, 11))
+    assert pc.splits == (5, 11) and pc.frags.shape[1] == 3
+    full = pc.frags.float().permute(2, 6, 1, 5, 7, 0, 3, 4).reshape(28, 24, 24)
+    wr = w.to(torch.bfloat16).float().reshape(27, 16, 24)
+    assert torch.equal(full[:27, :5], wr[:, :5]) and not full[:, 5:8].any()
+    assert torch.equal(full[:27, 8:19], wr[:, 5:]) and not full[:, 19:].any()
+    assert conv_cf._split_key((5, 11)) != conv_cf._split_key((16,))
+    assert conv_cf._split_key((8, 8)) == conv_cf._split_key((16,))
+    with pytest.raises(ValueError):
+        pack_conv(w, torch.bfloat16, (5, 10))
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -160,11 +206,14 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """H-first and H-fwd against conv3d_cf_reference on the card, in bf16 and
-    float32, at one small shape per feature (first conv with and without its
-    epilogue, [skip, up] sources with bias + elu + post, accum + relu, head;
-    W = 48 and H = 12 leave ragged tiles).  The
-    reference is float32 with TF32 off, on the same rounded inputs."""
+    """H-first, H-fwd-mma (bf16) and H-fwd (float32) against
+    conv3d_cf_reference on the card, at one small shape per feature: first
+    conv with and without its epilogue, [skip, up] sources of [8,16] and
+    [5,11] (each padded to 8 in shared memory) with bias + elu + post, C_in 4
+    and 13 with accum + relu, head; H = 12 and W = 48 / 20 leave ragged tiles
+    (W = 20 takes the 2-byte load path); the flipped, transposed weights of an
+    input gradient.  The reference is float32 with TF32 off, on the same
+    rounded inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     old = torch.backends.cudnn.allow_tf32
@@ -172,32 +221,44 @@ def test_kernels_match_plain_on_card():
     try:
         rng = np.random.default_rng(6)
         dev = torch.device("cuda")
-        d, h, w = 8, 12, 48
+        d, h = 8, 12
 
         def r(*shape):
             return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-        for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        for dtype, tol, kernel in ((torch.bfloat16, 1e-2, "fwd_mma"), (torch.float32, 1e-5, "fwd")):
             post = r(2, 24)
-            cases = [
-                (dict(x=r(1, d, h, w).to(dtype), w=r(3, 3, 3, 1, 24), bias=r(24),
-                      activation="elu", post=post), "first"),
-                (dict(x=r(2, d, h, w).to(dtype), w=r(3, 3, 3, 2, 8)), "first"),
-                (dict(x=[r(8, d, h, w).to(dtype), r(16, d, h, w).to(dtype)],
-                      w=r(3, 3, 3, 24, 24) * 0.1, bias=r(24), activation="elu",
-                      post=post), "fwd"),
-                (dict(x=r(13, d, h, w).to(dtype), w=r(3, 3, 3, 13, 40) * 0.1,
-                      accum=r(40, d, h, w).to(dtype), activation="relu"), "fwd"),
-                (dict(x=r(24, d, h, w).to(dtype), w=r(3, 3, 3, 24, 24) * 0.1, bias=r(24),
-                      activation="elu", post=post, head=(r(24), r(1)[0])), "fwd"),
-            ]
-            for kw, kernel in cases:
-                before = LAUNCHES[kernel]
-                got = conv3d_cf(**kw)
-                torch.cuda.synchronize()
-                assert LAUNCHES[kernel] == before + 1
-                want = conv3d_cf_reference(**kw)
-                err = (got.float() - want.float()).abs().max() / want.float().abs().max()
-                assert float(err) <= tol, (kernel, dtype, float(err))
+            for w in (48, 20):
+                cases = [
+                    (dict(x=r(1, d, h, w).to(dtype), w=r(3, 3, 3, 1, 24), bias=r(24),
+                          activation="elu", post=post), "first"),
+                    (dict(x=r(2, d, h, w).to(dtype), w=r(3, 3, 3, 2, 8)), "first"),
+                    (dict(x=[r(8, d, h, w).to(dtype), r(16, d, h, w).to(dtype)],
+                          w=r(3, 3, 3, 24, 24) * 0.1, bias=r(24), activation="elu",
+                          post=post), kernel),
+                    (dict(x=[r(5, d, h, w).to(dtype), r(11, d, h, w).to(dtype)],
+                          w=r(3, 3, 3, 16, 24) * 0.1, bias=r(24), activation="elu",
+                          post=post), kernel),
+                    (dict(x=r(4, d, h, w).to(dtype), w=r(3, 3, 3, 4, 24) * 0.1, bias=r(24),
+                          activation="elu"), kernel),
+                    (dict(x=r(13, d, h, w).to(dtype), w=r(3, 3, 3, 13, 40) * 0.1,
+                          accum=r(40, d, h, w).to(dtype), activation="relu"), kernel),
+                    (dict(x=r(24, d, h, w).to(dtype), w=r(3, 3, 3, 24, 24) * 0.1, bias=r(24),
+                          activation="elu", post=post, head=(r(24), r(1)[0])), kernel),
+                    (dict(x=r(96, d, h, w).to(dtype), w=r(3, 3, 3, 96, 48) * 0.05, bias=r(48),
+                          activation="elu"), kernel),
+                    (dict(x=r(24, d, h, w).to(dtype),
+                          w=torch.flip(r(3, 3, 3, 72, 24) * 0.1, (0, 1, 2)).transpose(3, 4)),
+                     kernel),
+                ]
+                for kw, name in cases:
+                    before = dict(LAUNCHES)
+                    got = conv3d_cf(**kw)
+                    torch.cuda.synchronize()
+                    assert [k for k in LAUNCHES if LAUNCHES[k] != before[k]] == [name]
+                    want = conv3d_cf_reference(**kw)
+                    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+                    bound = 1e-4 if "head" in kw and dtype == torch.bfloat16 else tol
+                    assert float(err) <= bound, (name, dtype, w, float(err))
     finally:
         torch.backends.cudnn.allow_tf32 = old
