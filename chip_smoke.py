@@ -1,12 +1,14 @@
 """GPU smoke run of the PyTorch port: builds the hand-written CUDA kernels,
 holds each against its plain PyTorch version (and times the one PyTorch call
 that computes the same function, and the card's bound) at the shapes of the
-port's main paths: H-first, the tensor-core H-fwd-mma and H-wgrad-mma in
-bf16, and the CUDA-core H-fwd and H-wgrad in float32.  Then it drives each
+port's main paths: the tensor-core H-first-mma, H-fwd-mma and H-wgrad-mma
+in bf16, and the CUDA-core H-first, H-fwd and H-wgrad in float32.  Then it drives each
 path at full width (24 features, 5 levels, seeded random weights and data):
 
 - predict: ``synthsr_tpu_torch.cli.predict.main`` with flip TTA over three
   synthetic volumes, and the fast network against the plain float32 forward;
+  then one volume through ``Predictor(compute_dtype="float32")``, the path of
+  the float32 kernels;
 - predict at a large field of view: ``cli.predict.main`` on a 1 mm CT
   phantom of 180x250x500 voxels (padded to 192x256x512, the shape whose
   level-0 24->24 conv only the TPU's blocked kernel K5 served);
@@ -45,6 +47,7 @@ HEAD_BOUND = 1e-4     # the same for the f32 head output (sum order only)
 WGRAD_BOUND = 1e-4    # the same for H-wgrad: f32 sums of bf16 products (order only)
 F32_BOUND = 1e-5      # the same for the float32 CUDA-core kernels (order only)
 NET_BOUND = 2e-2      # relative L2, bf16 fast TTA network output vs plain f32
+NET_F32_BOUND = 1e-4  # the same for the float32 fast network (sum order only)
 GRAD_BOUND = 5e-2     # relative L2, one train step's bf16 kernel-path gradient vs plain f32
 # the same for each 3³ conv's weight gradient on its own: the whole-gradient
 # bound is dominated by the largest leaves, while a wrong dw or dx at any one
@@ -62,11 +65,12 @@ PEAK_BYTES = 3.35e12
 SOURCE = "synthsr_tpu_torch/csrc/conv3d_cf.cu"
 WGRAD_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad.cu"
 MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_fwd_mma.cu"
+FIRST_MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_first_mma.cu"
 WGRAD_MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad_mma.cu"
 PALLAS = "synthsr_tpu/ops/conv_pallas.py"
-NO_LAUNCHES = {"first": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0, "wgrad": 0}
+NO_LAUNCHES = {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0, "wgrad": 0}
 # kernel launches per train step of the shipped net (4 input channels, so no
-# H-first): 18 forward convs + 17 input gradients (not the first conv's) on
+# first-conv kernel): 18 forward convs + 17 input gradients (not the first conv's) on
 # H-fwd-mma; 18 weight gradients + 4 for the decoders' second sources on
 # H-wgrad-mma; in float32 the same counts on H-fwd and H-wgrad
 TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_mma": 35, "wgrad_mma": 22}
@@ -76,8 +80,10 @@ TRAIN_F32_STEPS = 2
 # (name, kernel, source channels, cout, spatial, fused epilogue, dtype)
 BF16, F32 = torch.bfloat16, torch.float32
 SHAPES = [
-    ("1->24 @256^3", "first", (1,), 24, (256, 256, 256), "bias+elu", BF16),
-    ("2->24 @256^3", "first", (2,), 24, (256, 256, 256), "bias+elu", BF16),
+    ("1->24 @256^3", "first_mma", (1,), 24, (256, 256, 256), "bias+elu", BF16),
+    ("2->24 @256^3", "first_mma", (2,), 24, (256, 256, 256), "bias+elu", BF16),
+    # Hyperfine's first conv at its padded 192x256x160 (W = 160: five 32-wide tiles)
+    ("2->24 @192x256x160", "first_mma", (2,), 24, (192, 256, 160), "bias+elu", BF16),
     ("24->24 @256^3", "fwd_mma", (24,), 24, (256, 256, 256), "bias+elu", BF16),
     ("[24,48]->24 @256^3", "fwd_mma", (24, 48), 24, (256, 256, 256), "bias+elu", BF16),
     ("24->24 @256^3 +post+head", "fwd_mma", (24,), 24, (256, 256, 256), "bias+elu+post+head",
@@ -87,12 +93,14 @@ SHAPES = [
     ("96->96 @64^3", "fwd_mma", (96,), 96, (64, 64, 64), "bias+elu", BF16),
     ("[192,384]->192 @32^3 +post", "fwd_mma", (192, 384), 192, (32, 32, 32), "bias+elu+post",
      BF16),
-    ("1->24 @192x224x192", "first", (1,), 24, (192, 224, 192), "bias+elu", BF16),
+    ("1->24 @192x224x192", "first_mma", (1,), 24, (192, 224, 192), "bias+elu", BF16),
+    # W % 8 != 0: the 2-byte load and store path
+    ("1->24 @192x224x190", "first_mma", (1,), 24, (192, 224, 190), "bias+elu", BF16),
     ("24->24 @192x224x192", "fwd_mma", (24,), 24, (192, 224, 192), "bias+elu", BF16),
     # a large field of view: the level-0 convs that K5 served on the TPU,
     # 24-, 48- and 72-channel sources of 25 M voxels (a 72-channel source's
     # byte offsets pass 2^31)
-    ("1->24 @192x256x512", "first", (1,), 24, (192, 256, 512), "bias+elu", BF16),
+    ("1->24 @192x256x512", "first_mma", (1,), 24, (192, 256, 512), "bias+elu", BF16),
     ("24->24 @192x256x512 (K5)", "fwd_mma", (24,), 24, (192, 256, 512), "bias+elu", BF16),
     ("[24,48]->24 @192x256x512", "fwd_mma", (24, 48), 24, (192, 256, 512), "bias+elu", BF16),
     ("72->24 @192x256x512", "fwd_mma", (72,), 24, (192, 256, 512), "bias+elu", BF16),
@@ -100,11 +108,16 @@ SHAPES = [
     # the train step's input-gradient convs: flipped, transposed weights, no epilogue
     ("24->72 @128^3 (dx)", "fwd_mma", (24,), 72, (128, 128, 128), "dx", BF16),
     ("48->144 @64^3 (dx)", "fwd_mma", (48,), 144, (64, 64, 64), "dx", BF16),
-    # the CUDA-core kernels on float32 activations
+    # the CUDA-core kernels on float32 activations: the float32 train step's
+    # 128^3, then the level-0 convs of the float32 predict phase's clinical volume
     ("1->24 @128^3 f32", "first", (1,), 24, (128, 128, 128), "bias+elu", F32),
     ("24->24 @128^3 f32", "fwd", (24,), 24, (128, 128, 128), "bias+elu", F32),
+    ("1->24 @192x224x192 f32", "first", (1,), 24, (192, 224, 192), "bias+elu", F32),
+    ("24->24 @192x224x192 f32", "fwd", (24,), 24, (192, 224, 192), "bias+elu", F32),
+    ("[24,48]->24 @192x224x192 f32", "fwd", (24, 48), 24, (192, 224, 192), "bias+elu", F32),
 ]
-TIMED = {"first": "1->24 @256^3", "fwd_mma": "[24,48]->24 @256^3",
+TIMED = {"first_mma": "1->24 @256^3", "first": "1->24 @128^3 f32",
+         "fwd_mma": "[24,48]->24 @256^3",
          "wgrad_mma": "(24,24) @128^3", "fwd": "24->24 @128^3 f32", "wgrad": "(24,24) @64^3 f32"}
 
 # H-wgrad-mma at the train step's weight-gradient shapes, then H-wgrad on
@@ -121,8 +134,9 @@ VOLUMES = [("t1_256.nii.gz", (256, 256, 128), (1.0, 1.0, 2.0), False),
 LARGE_FOV = ("head_neck_ct.nii", (180, 250, 500), (1.0, 1.0, 1.0))
 # Hyperfine T1/T2 pairs at 1.5 x 1.5 x 5 mm: (T1 shape, T2 rotated about z, degrees)
 HYPERFINE = [((128, 160, 32), 0.0), ((128, 160, 32), 10.0)]
-PREDICT_LAUNCHES = {**NO_LAUNCHES, "first": 2, "fwd_mma": 34}   # per volume, flip TTA
-HYPERFINE_LAUNCHES = {**NO_LAUNCHES, "first": 1, "fwd_mma": 17}  # per pair, one forward
+PREDICT_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_mma": 34}   # per volume, flip TTA
+HYPERFINE_LAUNCHES = {**NO_LAUNCHES, "first_mma": 1, "fwd_mma": 17}  # per pair, one forward
+PREDICT_F32_LAUNCHES = {**NO_LAUNCHES, "first": 2, "fwd": 34}  # per volume, float32 compute
 
 
 def ptxas_summary(log):
@@ -223,7 +237,7 @@ def check_kernels(conv_cf, gen):
         bound_ms, bound_by = bound(2 * 27 * cin * cout * vox,
                                    size * cin * vox + 4 * 27 * cin * cout + out_bytes,
                                    dtype)
-        print(f"  {kernel:7s} {name:28s} {fused:20s} max_abs_err {err:.3e} rel {rel:.3e} "
+        print(f"  {kernel:9s} {name:28s} {fused:20s} max_abs_err {err:.3e} rel {rel:.3e} "
               f"(tolerance {tol:.0e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
               f"library {library_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})", flush=True)
         require(np.isfinite(rel) and rel <= tol, (name, rel, tol))
@@ -560,7 +574,8 @@ def profile_predict_volume(predictor, vol, aff):
         predictor.predict_volume(vol, aff)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"H-fwd-mma": "conv3d_fwd_mma_kernel", "H-first": "conv3d_first_kernel",
+    kinds = {"H-fwd-mma": "conv3d_fwd_mma_kernel", "H-first-mma": "conv3d_first_mma_kernel",
+             "H-first": "conv3d_first_kernel",
              "copy host->device": "Memcpy HtoD", "copy device->host": "Memcpy DtoH"}
     device_ms = dict.fromkeys([*kinds, "other"], 0.0)
     for ev in prof.key_averages():
@@ -570,6 +585,39 @@ def profile_predict_volume(predictor, vol, aff):
     print(f"  profiled predict_volume: wall {wall_ms:.1f} ms, device ms "
           f"{ {k: round(v, 3) for k, v in device_ms.items()} }, device idle {idle:.1%}")
     return wall_ms, device_ms, idle
+
+
+def predict_f32_phase(predict, conv_cf, weights, clinical):
+    """``Predictor(compute_dtype="float32").predict_volume`` on the clinical
+    volume: the float32 path of the CUDA-core kernels (H-first, H-fwd), and
+    its fast network against the plain float32 forward."""
+    phase("main path: predict in float32 (the CUDA-core kernels, clinical volume)")
+    _, vol, aff, shape, zooms = clinical
+    f32 = predict.Predictor(model_path=weights, compute_dtype="float32")
+    conv_cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred, aff_out = f32.predict_volume(vol, aff)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(conv_cf.LAUNCHES)
+    want = tuple(int(np.ceil(s * z)) for s, z in zip(shape, zooms))
+    require(launches == PREDICT_F32_LAUNCHES, launches)
+    require(pred.shape == want and np.all(np.isfinite(pred)), (pred.shape, want))
+    require(pred.min() >= 0 and pred.max() <= 128, "range")
+    x, _, _ = f32.prepare(vol, aff)
+    # the float32 rows of SHAPES hold H-first and H-fwd at this padded shape
+    require(tuple(x.shape[2:]) == (192, 224, 192), tuple(x.shape[2:]))
+    with torch.no_grad():
+        fast = f32.network(x)
+        plain = 0.5 * f32.model(x) + 0.5 * torch.flip(f32.model(torch.flip(x, [2])), [2])
+    rel = float((fast - plain).norm() / plain.norm())
+    print(f"  predict_volume {seconds:.3f} s (first call); launches {launches}; padded "
+          f"{tuple(x.shape[2:])}; network vs plain: relative L2 {rel:.3e} "
+          f"(bound {NET_F32_BOUND:.0e})")
+    require(np.isfinite(rel) and rel <= NET_F32_BOUND, rel)
+    del x, fast, plain, f32
+    torch.cuda.empty_cache()
+    return {"launches": launches, "summary": dict(seconds=seconds, net_rel_l2=rel)}
 
 
 def large_fov_phase(predict, conv_cf, weights, tmp, rng):
@@ -830,17 +878,20 @@ def main():
         del warm
         torch.cuda.empty_cache()
 
+        predict_f32 = predict_f32_phase(predict, conv_cf, weights, inputs["flair_clinical.nii.gz"])
         large_fov = large_fov_phase(predict, conv_cf, weights, tmp, rng)
         hyperfine = hyperfine_phase(conv_cf, tmp, rng)
 
     train = train_phase(conv_cf, rng)
-    path_launches = {"predict": launches, "predict_large_fov": large_fov["launches"],
+    path_launches = {"predict": launches, "predict_float32": predict_f32["launches"],
+                     "predict_large_fov": large_fov["launches"],
                      "hyperfine": hyperfine["launches"], "train": train["launches"],
                      "train_float32": train["f32_launches"]}
 
     kernels = []
     fwd_also = [f"{PALLAS}:920", f"{PALLAS}:1297", f"{PALLAS}:127"]
     for kernel, source, replaces, also in (
+            ("first_mma", FIRST_MMA_SOURCE, f"{PALLAS}:569", []),
             ("first", SOURCE, f"{PALLAS}:569", []),
             ("fwd_mma", MMA_SOURCE, f"{PALLAS}:270", fwd_also),
             ("wgrad_mma", WGRAD_MMA_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"]),
@@ -859,7 +910,8 @@ def main():
                                        "library_ms", "bound_ms", "bound_by")}
                     for c in mine]))
     print(json.dumps({"timings": timings, "main_seconds": main_s,
-                      "peak_allocated_bytes": peak, "large_fov": large_fov["summary"],
+                      "peak_allocated_bytes": peak, "predict_float32": predict_f32["summary"],
+                      "large_fov": large_fov["summary"],
                       "hyperfine": hyperfine["summary"], "train": train["summary"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -15,10 +15,11 @@ Modules, each beside its JAX counterpart of the same path unless named:
 - ``csrc/``: CUDA C++ for sm_90a.  ``conv3d_fwd_mma.cu`` (H-fwd-mma, bf16
   on the tensor cores) and ``conv3d_cf.cu``'s H-fwd (float32) replace
   ``_plane_kernel``, ``conv3d_cf_grouped``, ``_flat_kernel`` and ``_kernel``;
-  ``conv3d_cf.cu``'s H-first replaces ``_first_kernel``;
+  ``conv3d_first_mma.cu`` (H-first-mma, bf16 on the tensor cores) and
+  ``conv3d_cf.cu``'s H-first (float32) replace ``_first_kernel``;
   ``conv3d_wgrad_mma.cu`` (H-wgrad-mma, bf16) and ``conv3d_wgrad.cu``
   (H-wgrad, float32) replace ``_wgrad_kernel`` and ``_wgrad_flat_kernel``;
-  ``mma_common.cuh`` holds what the two mma kernels share;
+  ``mma_common.cuh`` holds what the mma kernels share;
 - ``ops/cuda_build.py`` (no counterpart: Pallas compiles in ``jit``): nvcc
   build on first use, ctypes load;
 - ``ops/conv_train.py``, ``ops/linops.py``, ``ops/blur.py``,

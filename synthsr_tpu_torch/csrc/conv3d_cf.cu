@@ -7,7 +7,8 @@
 // launch (0 = launched).
 //
 // Layouts (all contiguous):
-//   activations  (C, D, H, W), bf16 or float32 (template T)
+//   activations  (C, D, H, W) float32 (bf16 runs on the tensor-core kernels
+//                conv3d_*_mma.cu)
 //   weights      (cin_pad, 27, cout_pad) float32, tap = kd*9 + kh*3 + kw,
 //                packed once per weight set on the host (zero padding:
 //                cin_pad to a multiple of FWD_CK, cout_pad to a multiple of
@@ -21,21 +22,11 @@
 // once per output in the epilogue (the TPU kernels' centre-tap bias column is
 // a lane trick that has no purpose here).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 enum { ACT_NONE = 0, ACT_ELU = 1, ACT_RELU = 2 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == ACT_ELU) return v > 0.f ? v : expf(v) - 1.f;
@@ -54,9 +45,8 @@ __device__ __forceinline__ float activate(float v, int act) {
 // Bound: at the U-Net's widths (24..384 channels) the conv does 27*cin FMAs
 // per output value against 2 bytes read per input value, so it is bound by
 // arithmetic; this kernel uses the CUDA cores' float32 FMA (67 TFLOP/s
-// published peak).  It runs float32 activations only (instantiated for
-// T = float); bf16 activations run on the tensor cores in H-fwd-mma
-// (conv3d_fwd_mma.cu).
+// published peak).  It runs float32 activations only; bf16 activations run
+// on the tensor cores in H-fwd-mma (conv3d_fwd_mma.cu).
 // Design: one block owns one output plane z, an 8 x 32 (H x W) tile of it and
 // CT = 8*NG output channels.  It walks the input channels in chunks of FWD_CK:
 // the chunk's (3, 10, 34) halo tile, zero-filled outside the volume, and its
@@ -78,24 +68,24 @@ constexpr int FWD_PLANE = (FWD_TY + 2) * FWD_ROW; // 10 halo rows
 constexpr int FWD_CH = 3 * FWD_PLANE;             // 3 halo planes
 
 struct FwdArgs {
-  const void* src0;
-  const void* src1;
+  const float* src0;
+  const float* src1;
   int c0, c1;
   int d, h, w;
   const float* wpk;
   int cout, cout_pad;
   const float* bias;
-  const void* accum;
+  const float* accum;
   const float* post;
   const float* head;
   int act;
-  void* out;
+  float* out;
 };
 
 template <int NG>
 constexpr int fwd_smem_floats() { return FWD_CK * FWD_CH + FWD_CK * 27 * 8 * NG; }
 
-template <typename T, int NG>
+template <int NG>
 __global__ void __launch_bounds__(64 * NG) conv3d_fwd_kernel(const FwdArgs a) {
   constexpr int CT = 8 * NG;
   constexpr int NT = 64 * NG;
@@ -117,8 +107,6 @@ __global__ void __launch_bounds__(64 * NG) conv3d_fwd_kernel(const FwdArgs a) {
   const long long hw = (long long)a.h * a.w;
   const long long dhw = hw * a.d;
   const int cin = a.c0 + a.c1;
-  const T* src0 = static_cast<const T*>(a.src0);
-  const T* src1 = static_cast<const T*>(a.src1);
 
   float acc[4][8];
 #pragma unroll
@@ -140,8 +128,8 @@ __global__ void __launch_bounds__(64 * NG) conv3d_fwd_kernel(const FwdArgs a) {
       float v = 0.f;
       if (ci < cin && gx >= 0 && gx < a.w && gy >= 0 && gy < a.h && gz >= 0 && gz < a.d) {
         const long long off = (long long)gz * hw + (long long)gy * a.w + gx;
-        v = ci < a.c0 ? to_f32(src0[(long long)ci * dhw + off])
-                      : to_f32(src1[(long long)(ci - a.c0) * dhw + off]);
+        v = ci < a.c0 ? a.src0[(long long)ci * dhw + off]
+                      : a.src1[(long long)(ci - a.c0) * dhw + off];
       }
       s_in[c * FWD_CH + dz * FWD_PLANE + yy * FWD_ROW + xi + 3] = v;
     }
@@ -186,7 +174,6 @@ __global__ void __launch_bounds__(64 * NG) conv3d_fwd_kernel(const FwdArgs a) {
   const int y = ty0 + vy;
   const bool row_ok = y < a.h;
   const long long vox0 = (long long)z * hw + (long long)y * a.w + x0;
-  const T* accum = static_cast<const T*>(a.accum);
   float hsum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -197,13 +184,13 @@ __global__ void __launch_bounds__(64 * NG) conv3d_fwd_kernel(const FwdArgs a) {
     for (int v = 0; v < 4; ++v) {
       if (!row_ok || x0 + v >= a.w) continue;
       float val = acc[v][q];
-      if (accum) val += to_f32(accum[(long long)co * dhw + vox0 + v]);
+      if (a.accum) val += a.accum[(long long)co * dhw + vox0 + v];
       val = activate(val + b, a.act);
       if (a.post) val = val * a.post[co] + a.post[a.cout + co];
       if (a.head)
         hsum[v] += val * a.head[co];
       else
-        static_cast<T*>(a.out)[(long long)co * dhw + vox0 + v] = from_f32<T>(val);
+        a.out[(long long)co * dhw + vox0 + v] = val;
     }
   }
   if (a.head) {  // uniform over the block; the launcher guarantees cout <= CT
@@ -218,18 +205,20 @@ __global__ void __launch_bounds__(64 * NG) conv3d_fwd_kernel(const FwdArgs a) {
         float s = 0.f;
 #pragma unroll
         for (int g = 0; g < NG; ++g) s += red[g * 256 + vy * 32 + 4 * vx + v];
-        static_cast<float*>(a.out)[vox0 + v] = s + a.head[a.cout];
+        a.out[vox0 + v] = s + a.head[a.cout];
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// H-first: the U-Net's first conv (1 or 2 input channels).  Replaces K1
-// (_first_kernel, synthsr_tpu/ops/conv_pallas.py:569).
+// H-first: the U-Net's first conv (1 or 2 input channels) on float32
+// activations.  Replaces K1 (_first_kernel, synthsr_tpu/ops/conv_pallas.py:
+// 569) on the float32 path; bf16 activations run on the tensor cores in
+// H-first-mma (conv3d_first_mma.cu).
 //
 // Bound: with cin <= 2 there are only 27*cin FMAs per output value, and each
-// voxel writes cout bf16 values but reads 2*cin bytes, so the kernel sits
+// voxel writes cout float32 values but reads 4*cin bytes, so the kernel sits
 // near the balance of the card's float32 FMA rate and its store bandwidth.
 // Design: output-stationary, as on the TPU.  A block owns one plane z and a
 // 2 x 128 (H x W) tile; the (cin, 3, 4, 130) halo and the (27*cin, cout_pad)
@@ -245,11 +234,12 @@ constexpr int FIRST_ROW = 132;  // [xi] = x0 - 1 + xi for xi in [0, 130)
 constexpr int FIRST_PLANE = (FIRST_TY + 2) * FIRST_ROW;
 constexpr int FIRST_CH = 3 * FIRST_PLANE;
 
-template <typename T, int CIN>
+template <int CIN>
 __global__ void __launch_bounds__(FIRST_TX * FIRST_TY)
-conv3d_first_kernel(const T* __restrict__ x, int d, int h, int w, const float* __restrict__ wpk,
-                    int cout, int cout_pad, const float* __restrict__ bias,
-                    const float* __restrict__ post, int act, T* __restrict__ out) {
+conv3d_first_kernel(const float* __restrict__ x, int d, int h, int w,
+                    const float* __restrict__ wpk, int cout, int cout_pad,
+                    const float* __restrict__ bias, const float* __restrict__ post, int act,
+                    float* __restrict__ out) {
   constexpr int K = 27 * CIN;
   extern __shared__ __align__(16) float smem[];
   float* s_in = smem;                 // CIN x FIRST_CH
@@ -273,7 +263,7 @@ conv3d_first_kernel(const T* __restrict__ x, int d, int h, int w, const float* _
     const int gx = tx0 - 1 + xi, gy = ty0 - 1 + yy, gz = z - 1 + dz;
     float v = 0.f;
     if (gx >= 0 && gx < w && gy >= 0 && gy < h && gz >= 0 && gz < d)
-      v = to_f32(x[(long long)c * dhw + (long long)gz * hw + (long long)gy * w + gx]);
+      v = x[(long long)c * dhw + (long long)gz * hw + (long long)gy * w + gx];
     s_in[c * FIRST_CH + dz * FIRST_PLANE + yy * FIRST_ROW + xi] = v;
   }
   for (int e = t; e < K * cout_pad; e += FIRST_TX * FIRST_TY) s_w[e] = wpk[e];
@@ -315,7 +305,7 @@ conv3d_first_kernel(const T* __restrict__ x, int d, int h, int w, const float* _
       if (co >= cout) break;
       float val = activate(acc[q] + (bias ? bias[co] : 0.f), act);
       if (post) val = val * post[co] + post[cout + co];
-      out[(long long)co * dhw + vox] = from_f32<T>(val);
+      out[(long long)co * dhw + vox] = val;
     }
   }
 }
@@ -325,27 +315,27 @@ int set_smem(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int NG>
+template <int NG>
 int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * fwd_smem_floats<NG>();
-  int err = set_smem(conv3d_fwd_kernel<T, NG>, smem);
+  int err = set_smem(conv3d_fwd_kernel<NG>, smem);
   if (err) return err;
   const int tiles = ((a.w + FWD_TX - 1) / FWD_TX) * ((a.h + FWD_TY - 1) / FWD_TY);
   const dim3 grid(tiles, a.d, a.cout_pad / (8 * NG));
-  conv3d_fwd_kernel<T, NG><<<grid, 64 * NG, smem, stream>>>(a);
+  conv3d_fwd_kernel<NG><<<grid, 64 * NG, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 
-template <typename T, int CIN>
-int launch_first(const void* x, int d, int h, int w, const float* wpk, int cout, int cout_pad,
-                 const float* bias, const float* post, int act, void* out, cudaStream_t stream) {
+template <int CIN>
+int launch_first(const float* x, int d, int h, int w, const float* wpk, int cout, int cout_pad,
+                 const float* bias, const float* post, int act, float* out, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)CIN * FIRST_CH + (size_t)27 * CIN * cout_pad);
-  int err = set_smem(conv3d_first_kernel<T, CIN>, smem);
+  int err = set_smem(conv3d_first_kernel<CIN>, smem);
   if (err) return err;
   const int tiles = ((w + FIRST_TX - 1) / FIRST_TX) * ((h + FIRST_TY - 1) / FIRST_TY);
-  conv3d_first_kernel<T, CIN><<<dim3(tiles, d), FIRST_TX * FIRST_TY, smem, stream>>>(
-      static_cast<const T*>(x), d, h, w, wpk, cout, cout_pad, bias, post, act, static_cast<T*>(out));
+  conv3d_first_kernel<CIN><<<dim3(tiles, d), FIRST_TX * FIRST_TY, smem, stream>>>(
+      x, d, h, w, wpk, cout, cout_pad, bias, post, act, out);
   return (int)cudaGetLastError();
 }
 
@@ -363,27 +353,28 @@ int conv3d_fwd_launch(const void* src0, int c0, const void* src1, int c1, int d,
                       const float* wpk, int cout, int cout_pad, int ng, const float* bias,
                       const void* accum, const float* post, const float* head, int act,
                       void* out, void* stream) {
-  const FwdArgs a{src0, src1, c0, c1, d, h, w, wpk, cout, cout_pad, bias, accum, post, head, act, out};
+  const FwdArgs a{static_cast<const float*>(src0), static_cast<const float*>(src1), c0, c1,
+                  d, h, w, wpk, cout, cout_pad, bias, static_cast<const float*>(accum), post,
+                  head, act, static_cast<float*>(out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ng) {
-    case 1: return launch_fwd<float, 1>(a, s);
-    case 2: return launch_fwd<float, 2>(a, s);
-    case 3: return launch_fwd<float, 3>(a, s);
-    case 4: return launch_fwd<float, 4>(a, s);
+    case 1: return launch_fwd<1>(a, s);
+    case 2: return launch_fwd<2>(a, s);
+    case 3: return launch_fwd<3>(a, s);
+    case 4: return launch_fwd<4>(a, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// float32 activations only: bf16 goes to H-first-mma (conv3d_first_mma.cu).
 int conv3d_first_launch(const void* x, int cin, int d, int h, int w, const float* wpk, int cout,
-                        int cout_pad, const float* bias, const float* post, int act, int bf16,
-                        void* out, void* stream) {
+                        int cout_pad, const float* bias, const float* post, int act, void* out,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cin == 1)
-    return bf16 ? launch_first<__nv_bfloat16, 1>(x, d, h, w, wpk, cout, cout_pad, bias, post, act, out, s)
-                : launch_first<float, 1>(x, d, h, w, wpk, cout, cout_pad, bias, post, act, out, s);
-  if (cin == 2)
-    return bf16 ? launch_first<__nv_bfloat16, 2>(x, d, h, w, wpk, cout, cout_pad, bias, post, act, out, s)
-                : launch_first<float, 2>(x, d, h, w, wpk, cout, cout_pad, bias, post, act, out, s);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  if (cin == 1) return launch_first<1>(xf, d, h, w, wpk, cout, cout_pad, bias, post, act, of, s);
+  if (cin == 2) return launch_first<2>(xf, d, h, w, wpk, cout, cout_pad, bias, post, act, of, s);
   return (int)cudaErrorInvalidValue;
 }
 

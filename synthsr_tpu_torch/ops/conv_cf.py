@@ -20,12 +20,14 @@
   folded in after ``post``.
 
 Dispatch, by device and dtype, with no fallback: a CPU tensor goes to
-:func:`conv3d_cf_reference` (plain PyTorch); a CUDA tensor launches
-**H-first** (one source, C_in <= 2, no ``accum``, no ``head``, bf16 or
-float32; replaces K1, ``csrc/conv3d_cf.cu``), else **H-fwd-mma** for bf16
-(tensor cores, ``csrc/conv3d_fwd_mma.cu``; replaces K2, K3, K4 and K5) or
-**H-fwd** for float32 (CUDA cores, ``csrc/conv3d_cf.cu``); any other device
-raises.
+:func:`conv3d_cf_reference` (plain PyTorch); a CUDA tensor that passes the
+first-conv gate (one source, C_in <= 2, no ``accum``, no ``head``; K1's
+shapes) launches **H-first-mma** for bf16 with C_out <= 32 (tensor cores,
+``csrc/conv3d_first_mma.cu``) or **H-first** for float32 (CUDA cores,
+``csrc/conv3d_cf.cu``), both replacing K1; any other conv launches
+**H-fwd-mma** for bf16 (tensor cores, ``csrc/conv3d_fwd_mma.cu``; replaces
+K2, K3, K4 and K5) or **H-fwd** for float32 (CUDA cores,
+``csrc/conv3d_cf.cu``); any other device raises.
 
 K5 (``_kernel``, ``synthsr_tpu/ops/conv_pallas.py:127``, entry ``conv3d_cf``
 :990) is the TPU's blocked conv for the shapes the plane and folded-plane
@@ -59,7 +61,7 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-LAUNCHES = {"first": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0, "wgrad": 0}
+LAUNCHES = {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0, "wgrad": 0}
 
 FWD_CHUNK = 8  # input channels per H-fwd chunk (FWD_CK in csrc/conv3d_cf.cu)
 MMA_STEPS = 14  # k16 steps per 8-channel group of H-fwd-mma (FM_STEPS in csrc/conv3d_fwd_mma.cu)
@@ -68,6 +70,10 @@ WGRAD_MMA_TILE = (4, 32)  # H-wgrad-mma item (H, W) of one plane
 WGRAD_MMA_BLOCKS_PER_SM = 4  # 96-thread blocks H-wgrad-mma aims to keep on each SM
 WGRAD_CHUNK = 8  # input channels per H-wgrad block (WG_CK in csrc/conv3d_wgrad.cu)
 WGRAD_MAX_TILE = 128  # voxels per H-wgrad tile (WG_MAXVOX)
+# H-first-mma: K (27·C_in taps + the bias's ones column) padded to k16 steps,
+# and the most output channels (two m16 tiles); conv3d_first_mma.cu agrees
+FIRST_MMA_KPAD = {1: 32, 2: 64}
+FIRST_MMA_MAX_COUT = 32
 _ACT_CODES = {None: 0, "elu": 1, "relu": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
@@ -83,6 +89,9 @@ def build_kernels() -> float:
         raise RuntimeError("csrc/conv3d_cf.cu, csrc/conv3d_fwd_mma.cu and conv_cf disagree")
     if (lib.conv3d_wgrad_chunk(), lib.conv3d_wgrad_max_tile()) != (WGRAD_CHUNK, WGRAD_MAX_TILE):
         raise RuntimeError("csrc/conv3d_wgrad.cu and conv_cf.WGRAD_* disagree")
+    if ({c: lib.conv3d_first_mma_kpad(c) for c in FIRST_MMA_KPAD} != FIRST_MMA_KPAD
+            or lib.conv3d_first_mma_max_cout() != FIRST_MMA_MAX_COUT):
+        raise RuntimeError("csrc/conv3d_first_mma.cu and conv_cf.FIRST_MMA_* disagree")
     _lib = lib
     return seconds
 
@@ -129,17 +138,19 @@ class PackedConv:
 
     ``w``: DHWIO float32, values rounded to ``dtype`` (the plain version's
     operand).  ``packed``: (cin_pad, 27, cout_pad) float32, zero-padded to
-    the CUDA-core kernels' channel chunk and cout tile (H-first, float32
-    H-fwd); made for float32 and for C_in <= 2, else None.  ``frags``: the
-    bf16 B fragments of H-fwd-mma (see :func:`_mma_fragments`), for bf16,
-    else None; ``splits`` are the source channel counts they were laid out
-    for."""
+    the CUDA-core kernels' channel chunk and cout tile (H-first, H-fwd);
+    made for float32, else None.  ``frags``: the bf16 B fragments of
+    H-fwd-mma (see :func:`_mma_fragments`), for bf16, else None; ``splits``
+    are the source channel counts they were laid out for.  ``first_frags``:
+    the bf16 A fragments of H-first-mma (see :func:`_first_mma_fragments`),
+    for bf16 with C_in <= 2 and C_out <= 32, else None."""
     w: torch.Tensor
     packed: torch.Tensor | None
     frags: torch.Tensor | None
     dtype: torch.dtype
     ng: int
     splits: tuple
+    first_frags: torch.Tensor | None
 
     @property
     def cin(self) -> int:
@@ -173,6 +184,26 @@ def _mma_fragments(wr: torch.Tensor, splits, ng: int) -> torch.Tensor:
     return v.permute(5, 2, 0, 6, 7, 3, 1, 4).to(torch.bfloat16).contiguous()
 
 
+def _first_mma_fragments(wr: torch.Tensor) -> torch.Tensor:
+    """H-first-mma's A operand: (2 m-tiles, steps, 8 g, 4 tq, 2 kh, 2 rh, 2 e)
+    bf16, i.e. (m-tile, step, lane) x 4 registers of 2 bf16, in the order the
+    kernel's lanes read it.
+
+    A is (32 output channels, K): row = channel (zero past C_out), column k =
+    tap·C_in + c for the taps (tap = kd*9 + kh*3 + kw, DHWIO order: the two
+    channels of a tap share one B register, one 32-bit halo word), then the
+    ones column k = 27·C_in, which the kernel fills with the bias, and zeros
+    up to ``FIRST_MMA_KPAD``.  Lane 4g + tq of m-tile mt, step s holds register
+    2kh + rh = the mma.m16n8k16 A fragment of row 16mt + 8rh + g, k 16s + 8kh
+    + 2tq + e (e the low, then the high half)."""
+    cin, cout = wr.shape[3], wr.shape[4]
+    kpad = FIRST_MMA_KPAD[cin]
+    a = wr.reshape(27 * cin, cout).t()
+    a = F.pad(a, (0, kpad - 27 * cin, 0, FIRST_MMA_MAX_COUT - cout))
+    v = a.reshape(2, 2, 8, kpad // 16, 2, 4, 2)  # mt, rh, g, s, kh, tq, e
+    return v.permute(0, 3, 2, 5, 4, 1, 6).to(torch.bfloat16).contiguous()
+
+
 def pack_conv(w: torch.Tensor, dtype: torch.dtype, splits=None) -> PackedConv:
     """Round a DHWIO 3³ kernel to ``dtype`` and arrange it for the kernels,
     on the weight's own device.  ``splits``: the channel counts of the sources
@@ -188,7 +219,7 @@ def pack_conv(w: torch.Tensor, dtype: torch.dtype, splits=None) -> PackedConv:
     wr = w.detach().to(dtype).to(torch.float32).contiguous()
     bf16 = dtype == torch.bfloat16
     packed = None
-    if not bf16 or cin <= 2:
+    if not bf16:
         ng = cout_groups(cout)
         cin_pad = -(-cin // FWD_CHUNK) * FWD_CHUNK
         cout_pad = -(-cout // (8 * ng)) * (8 * ng)
@@ -196,7 +227,10 @@ def pack_conv(w: torch.Tensor, dtype: torch.dtype, splits=None) -> PackedConv:
         packed[:cin, :, :cout] = wr.reshape(27, cin, cout).permute(1, 0, 2)
     ng = mma_groups(cout) if bf16 else cout_groups(cout)
     frags = _mma_fragments(wr, splits, ng) if bf16 else None
-    return PackedConv(wr, packed, frags, dtype, ng, splits)
+    first = None
+    if bf16 and cin in FIRST_MMA_KPAD and cout <= FIRST_MMA_MAX_COUT:
+        first = _first_mma_fragments(wr)
+    return PackedConv(wr, packed, frags, dtype, ng, splits, first)
 
 
 def _sources(x):
@@ -317,13 +351,23 @@ def _launch(srcs, w, bias, activation, post, head, accum):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptr = (lambda t: None if t is None else t.data_ptr())
         act = _ACT_CODES[activation]
-        if len(srcs) == 1 and cin <= 2 and accum is None and head is None:
+        first = len(srcs) == 1 and cin <= 2 and accum is None and head is None
+        if first and dtype == torch.float32:
             out = torch.empty((cout, d, h, wd), dtype=dtype, device=dev)
             err = lib.conv3d_first_launch(
                 ptr(srcs[0]), cin, d, h, wd, ptr(pc.packed), cout, pc.packed.shape[2],
-                ptr(b), ptr(p), act, int(dtype == torch.bfloat16), ptr(out), stream)
+                ptr(b), ptr(p), act, ptr(out), stream)
             _check(lib, err, "H-first")
             LAUNCHES["first"] += 1
+            return out
+        if first and pc.first_frags is not None:
+            out = torch.empty((cout, d, h, wd), dtype=dtype, device=dev)
+            vec = int(wd % 8 == 0 and _aligned(srcs[0], out))
+            err = lib.conv3d_first_mma_launch(
+                ptr(srcs[0]), cin, d, h, wd, ptr(pc.first_frags), cout, ptr(b), ptr(p), act,
+                vec, ptr(out), stream)
+            _check(lib, err, "H-first-mma")
+            LAUNCHES["first_mma"] += 1
             return out
         if head is not None:
             out = torch.empty((1, d, h, wd), dtype=torch.float32, device=dev)

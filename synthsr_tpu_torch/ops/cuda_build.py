@@ -22,7 +22,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("conv3d_cf.cu", "conv3d_wgrad.cu", "conv3d_fwd_mma.cu", "conv3d_wgrad_mma.cu")
+SOURCES = ("conv3d_cf.cu", "conv3d_wgrad.cu", "conv3d_fwd_mma.cu", "conv3d_wgrad_mma.cu",
+           "conv3d_first_mma.cu")
 HEADERS = ("mma_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -33,14 +34,18 @@ _SIGNATURES = {
                            _P, _P, _I, _P, _P], _I),
     "conv3d_fwd_mma_launch": ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
                                _P, _P, _I, _I, _P, _P], _I),
-    "conv3d_first_launch": ([_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I,
-                             _P, _P], _I),
+    "conv3d_first_launch": ([_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P,
+                             _P], _I),
+    "conv3d_first_mma_launch": ([_P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _I, _P,
+                                 _P], _I),
     "conv3d_wgrad_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                              _P], _I),
     "conv3d_wgrad_mma_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                                  _P], _I),
     "conv3d_fwd_chunk": ([], _I),
     "conv3d_fwd_mma_steps": ([], _I),
+    "conv3d_first_mma_kpad": ([_I], _I),
+    "conv3d_first_mma_max_cout": ([], _I),
     "conv3d_wgrad_chunk": ([], _I),
     "conv3d_wgrad_max_tile": ([], _I),
     "conv3d_error_string": ([_I], ctypes.c_char_p),

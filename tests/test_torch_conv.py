@@ -27,10 +27,12 @@ def _t(a):
     return torch.from_numpy(np.array(a, np.float32))
 
 
-@pytest.mark.parametrize("cin,cout,d,activation", [(1, 8, 8, "relu"), (8, 16, 8, "elu")])
+@pytest.mark.parametrize("cin,cout,d,activation", [(1, 8, 8, "relu"), (8, 16, 8, "elu"),
+                                                    (2, 24, 8, "elu")])
 def test_reference_matches_pallas_planes(cin, cout, d, activation):
-    """conv3d_cf_planes (K1 for cin=1, K2 otherwise) with bias, activation and
-    the post-activation affine (tests/test_ops_core.py:238-269)."""
+    """conv3d_cf_planes (K1 for cin <= 2: the 1-channel first conv and the
+    Hyperfine 2-channel one; K2 otherwise) with bias, activation and the
+    post-activation affine (tests/test_ops_core.py:238-269)."""
     import jax.numpy as jnp
 
     from synthsr_tpu.ops.conv_pallas import conv3d_cf_planes
@@ -122,28 +124,48 @@ def test_cpu_dispatch_is_plain_and_launches_nothing():
     got = conv3d_cf(x, pack_conv(w, torch.float32), activation="elu")
     want = conv3d_cf_reference(x, w, activation="elu")
     assert torch.equal(got, want)
-    assert LAUNCHES == {"first": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0, "wgrad": 0}
+    assert LAUNCHES == {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0,
+                        "wgrad": 0}
     with pytest.raises(ValueError):
         conv3d_cf(x.to("meta"), w.to("meta"))
 
 
-@pytest.mark.parametrize("cin,cout", [(1, 24), (2, 8), (13, 40), (72, 24)])
+@pytest.mark.parametrize("cin,cout", [(1, 24), (2, 8), (13, 40), (72, 24), (2, 24), (1, 32),
+                                      (2, 40)])
 def test_pack_conv_layout(cin, cout):
     """The kernels' weight layouts, values rounded to the compute dtype.
 
-    float32 (H-fwd) and C_in <= 2 (H-first): (cin_pad, 27, cout_pad),
-    tap = kd*9+kh*3+kw, zero padding to the channel chunk and the cout tile.
-    bf16 (H-fwd-mma): the B fragments (n_tiles, groups, steps, ng, lanes, 4):
-    unpacked, step s of group k holds tap 2s (k 0-7) and tap 2s+1 (k 8-15) of
-    channels 8k..8k+7, lane 4g+tq output channel 8j+g, k 2tq, 2tq+1, 2tq+8,
-    2tq+9; everything past the weight is zero."""
+    float32 (H-fwd, H-first): (cin_pad, 27, cout_pad), tap = kd*9+kh*3+kw,
+    zero padding to the channel chunk and the cout tile.  bf16 (H-fwd-mma):
+    the B fragments (n_tiles, groups, steps, ng, lanes, 4): unpacked, step s
+    of group k holds tap 2s (k 0-7) and tap 2s+1 (k 8-15) of channels
+    8k..8k+7, lane 4g+tq output channel 8j+g, k 2tq, 2tq+1, 2tq+8, 2tq+9;
+    everything past the weight is zero.  bf16 with C_in <= 2 and C_out <= 32
+    (H-first-mma): the A fragments (m-tiles, steps, g, tq, kh, rh, e):
+    unpacked, row 16mt+8rh+g is an output channel, column k = tap*C_in+c then
+    the bias's ones column k = 27*C_in and padding to 32 / 64, all zero."""
     rng = np.random.default_rng(cin)
     w = _t(rng.normal(size=(3, 3, 3, cin, cout)))
     for dtype in (torch.float32, torch.bfloat16):
         pc = pack_conv(w, dtype)
         wr = w.to(dtype).float()
         assert torch.equal(pc.w, wr) and pc.splits == (cin,)
-        if dtype == torch.float32 or cin <= 2:
+        if dtype == torch.bfloat16 and cin <= 2 and cout <= conv_cf.FIRST_MMA_MAX_COUT:
+            kpad = conv_cf.FIRST_MMA_KPAD[cin]
+            f = pc.first_frags
+            assert f.dtype == torch.bfloat16 and f.shape == (2, kpad // 16, 8, 4, 2, 2, 2)
+            a = f.float().permute(0, 5, 2, 1, 4, 3, 6).reshape(32, kpad)  # (channel, k)
+            want = wr.reshape(27 * cin, cout).t()
+            assert torch.equal(a[:cout, :27 * cin], want)
+            assert not a[cout:].any() and not a[:, 27 * cin:].any()
+            # lane 4g+tq = 4*5+2 of m-tile 0, step 1, register 2kh+rh = 3: channel 8+5, k 16+8+4+e
+            got = f[0, 1, 5, 2].reshape(4, 2)[3]
+            assert torch.equal(got.float(), torch.stack([
+                want[13, k] if k < 27 * cin and 13 < cout else torch.tensor(0.0)
+                for k in (28, 29)]))
+        else:
+            assert pc.first_frags is None
+        if dtype == torch.float32:
             ng = conv_cf.cout_groups(cout)
             cin_pad, taps, cout_pad = pc.packed.shape
             assert taps == 27 and cin_pad % conv_cf.FWD_CHUNK == 0 and cout_pad % (8 * ng) == 0
@@ -206,9 +228,11 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """H-first, H-fwd-mma (bf16) and H-fwd (float32) against
+    """H-first-mma, H-fwd-mma (bf16), H-first and H-fwd (float32) against
     conv3d_cf_reference on the card, at one small shape per feature: first
-    conv with and without its epilogue, [skip, up] sources of [8,16] and
+    conv (C_in 1 and 2) with and without its epilogue, with post, with 11
+    planes (a ragged block of 8), and with C_out = 40 (past H-first-mma's 32:
+    H-fwd-mma in bf16), [skip, up] sources of [8,16] and
     [5,11] (each padded to 8 in shared memory) with bias + elu + post, C_in 4
     and 13 with accum + relu, head; H = 12 and W = 48 / 20 leave ragged tiles
     (W = 20 takes the 2-byte load path); the flipped, transposed weights of an
@@ -226,13 +250,18 @@ def test_kernels_match_plain_on_card():
         def r(*shape):
             return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-        for dtype, tol, kernel in ((torch.bfloat16, 1e-2, "fwd_mma"), (torch.float32, 1e-5, "fwd")):
+        for dtype, tol, kernel, first in ((torch.bfloat16, 1e-2, "fwd_mma", "first_mma"),
+                                          (torch.float32, 1e-5, "fwd", "first")):
             post = r(2, 24)
             for w in (48, 20):
                 cases = [
                     (dict(x=r(1, d, h, w).to(dtype), w=r(3, 3, 3, 1, 24), bias=r(24),
-                          activation="elu", post=post), "first"),
-                    (dict(x=r(2, d, h, w).to(dtype), w=r(3, 3, 3, 2, 8)), "first"),
+                          activation="elu", post=post), first),
+                    (dict(x=r(2, d, h, w).to(dtype), w=r(3, 3, 3, 2, 8)), first),
+                    (dict(x=r(2, 11, h, w).to(dtype), w=r(3, 3, 3, 2, 24), bias=r(24),
+                          activation="relu", post=post), first),
+                    (dict(x=r(1, d, h, w).to(dtype), w=r(3, 3, 3, 1, 40), bias=r(40),
+                          activation="elu"), kernel if dtype == torch.bfloat16 else first),
                     (dict(x=[r(8, d, h, w).to(dtype), r(16, d, h, w).to(dtype)],
                           w=r(3, 3, 3, 24, 24) * 0.1, bias=r(24), activation="elu",
                           post=post), kernel),

@@ -15,7 +15,13 @@ kernels rest on are tested here:
 - H-wgrad-mma: (plane, 4 x 32 tile) items, g zero outside the volume, 27
   GEMMs per item over its 128 voxels with x shifted by the tap, the items
   split over ``wgrad_plan``'s n_split blocks and the partials summed in
-  split order.
+  split order;
+- H-first-mma (csrc/conv3d_first_mma.cu): one GEMM of A (32 channels x K)
+  read back from ``pack_conv``'s fragments in the lanes' order, with the bias
+  written into the ones column's fragment slot as the kernel writes it, by
+  B = im2col of the zero-padded volume (k = tap·C_in + c, then a row of
+  ones, then zeros to K = 32 / 64), then the epilogue
+  (activation, post).
 """
 
 import numpy as np
@@ -153,3 +159,54 @@ def test_wgrad_mma_twin_matches_plain(ci, co, d, h, w, n_sm):
     assert n_split >= 1
     want = conv3d_cf_wgrad_reference(x, g)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def first_mma_twin(x, pc, bias=None, activation=None, post=None):
+    """H-first-mma's arithmetic on a float32 (C_in, D, H, W) source, (C_out, D,
+    H, W) float32."""
+    cin, d, h, w = x.shape
+    taps, kpad = 27 * cin, conv_cf.FIRST_MMA_KPAD[cin]
+    xp = F.pad(x.float(), (1, 1, 1, 1, 1, 1))
+    f = pc.first_frags.float().clone()  # (mt, s, g, tq, kh, rh, e)
+    if bias is not None:  # the kernel's (SB, RB = 2kh, TB, EB) slot of k = taps
+        sb, kb = divmod(taps, 16)
+        kh, tq, e = kb // 8, (kb & 7) >> 1, kb & 1
+        b = F.pad(bias.to(pc.dtype).float(), (0, conv_cf.FIRST_MMA_MAX_COUT - pc.cout))
+        f[:, sb, :, tq, kh, :, e] = b.reshape(2, 2, 8).permute(0, 2, 1)  # (mt, g, rh)
+    a = f.permute(0, 5, 2, 1, 4, 3, 6).reshape(conv_cf.FIRST_MMA_MAX_COUT, kpad)
+    rows = [xp[c, dz:dz + d, dy:dy + h, dx:dx + w]
+            for dz, dy, dx in map(_tap, range(27)) for c in range(cin)]
+    rows += [torch.ones(d, h, w)] + [torch.zeros(d, h, w)] * (kpad - taps - 1)
+    y = (a @ torch.stack(rows).reshape(kpad, -1)).reshape(-1, d, h, w)[:pc.cout]
+    if activation == "elu":
+        y = torch.where(y > 0, y, torch.exp(y) - 1)
+    elif activation == "relu":
+        y = y.clamp_min(0)
+    if post is not None:
+        y = y * post[0].reshape(-1, 1, 1, 1) + post[1].reshape(-1, 1, 1, 1)
+    return y
+
+
+@pytest.mark.parametrize("cin,cout,spatial,epilogue", [
+    (1, 24, (3, 12, 40), "bias+elu"),          # the shipped first conv
+    (2, 24, (9, 11, 37), "bias+elu+post"),     # Hyperfine's; ragged D (9 planes), H and W
+    (1, 24, (2, 9, 20), "bias+relu+post"),     # W = 20: the 2-byte path's width
+    (2, 24, (3, 8, 32), ""),                   # no bias, no activation: K padding only
+    (1, 8, (2, 5, 20), "bias+elu+post"),       # one channel row of m-tile 0
+    (2, 32, (2, 8, 33), "bias+relu"),          # both m-tiles full
+])
+def test_first_mma_twin_matches_plain(cin, cout, spatial, epilogue):
+    rng = np.random.default_rng(100 * cin + cout)
+    x = _bf16(rng, cin, *spatial)
+    w = torch.from_numpy(rng.normal(size=(3, 3, 3, cin, cout)).astype(np.float32) * 0.3)
+    pc = pack_conv(w, torch.bfloat16)
+    kw = {}
+    if "bias" in epilogue:
+        kw["bias"] = _bf16(rng, cout)
+    kw["activation"] = "elu" if "elu" in epilogue else "relu" if "relu" in epilogue else None
+    if "post" in epilogue:
+        kw["post"] = torch.from_numpy(rng.normal(size=(2, cout)).astype(np.float32))
+    got = first_mma_twin(x, pc, **kw)
+    want = conv3d_cf_reference(x, pc.w, **kw).float()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
