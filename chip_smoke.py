@@ -20,7 +20,13 @@ path at full width (24 features, 5 levels, seeded random weights and data):
   label maps, 2 epochs x 3 steps then a resume to epoch 3, one step's
   gradients against the plain float32 autograd of ``UNet3D.forward_train``,
   and the time of consecutive warm steps; then 2 steps with
-  ``--compute_dtype float32``, the path of the float32 kernels.
+  ``--compute_dtype float32``, the path of the float32 kernels;
+- adversarial: ``synthsr_tpu_torch.train.adversarial.training`` (WGAN-GP
+  fine-tuning) at ``bench_adversarial.py``'s configuration (a 24-feature
+  generator, a 32-filter 4-level critic, 128³, bf16) on the same label maps,
+  1 epoch x 2 steps then a resume to epoch 2, one critic update's loss and
+  gradient against plain float32 double autograd, where a 10:1 cycle's time
+  goes and the time of warm cycles; then one float32 step at 64³.
 
     python3 chip_smoke.py
 
@@ -54,7 +60,25 @@ GRAD_BOUND = 5e-2     # relative L2, one train step's bf16 kernel-path gradient 
 # conv puts an error of order 1 into that conv's leaf (and those before it)
 LEAF_BOUND = 0.15
 LOSS_BOUND = 1e-2     # relative difference of that step's loss
+# the critic update's loss -D(target) + D(fake) + GP is a small difference of
+# two scores of tens: each score is held as a network output (NET_BOUND, the
+# pair's relative L2), the penalty and the loss by LOSS_BOUND, the loss's
+# difference over the sum of its terms' magnitudes
 WARM_STEPS = 12       # consecutive warm train steps timed with CUDA events
+# adversarial fine-tuning at bench_adversarial.py:55-88's configuration: the
+# generator's synthesis (1 input channel, output_channel [0], 128^3) with
+# train/adversarial.training's defaults for the arguments the benchmark leaves
+# out; a 24-feature 5-level ELU generator, a 32-filter 4-level critic, batch 1,
+# bf16, loss_cropping 96
+ADV_CONFIG = dict(input_channels=[True], output_channel=[0], output_shape=128, flipping=True,
+                  scaling_bounds=0.2, rotation_bounds=20, shearing_bounds=0.03,
+                  translation_bounds=5, nonlin_std=5.0, nonlin_shape_factor=0.04,
+                  randomise_res=True, downsample=True, build_reliability_maps=False,
+                  bias_field_std=0.4, bias_shape_factor=0.04, blur_range=1.03,
+                  simulate_registration_error=False)
+ADV_RATIO = 10        # critic updates per generator update (training_ratio)
+ADV_FIRST_RATIO = 10  # first_training_ratio: 100 in the configuration, cut for the time limit
+ADV_CYCLES = 5        # warm 10:1 cycles timed with CUDA events
 # the bound: the larger of the operations over the H100 SXM's peak for their
 # type (dense bf16 on the tensor cores; float32 on the CUDA cores) and the
 # bytes (each input read once, each output written once) over its memory rate
@@ -76,6 +100,22 @@ NO_LAUNCHES = {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 
 TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_mma": 35, "wgrad_mma": 22}
 TRAIN_F32_LAUNCHES = {**NO_LAUNCHES, "fwd": 35, "wgrad": 22}
 TRAIN_F32_STEPS = 2
+# kernel launches of one critic update: the generator's fake (1 first_mma + 17
+# fwd_mma); the critic's first conv on target and fake (2 first_mma) and its
+# weight gradients (2 wgrad_mma; the input is detached: no dx); the gradient
+# penalty's program, forward: 4 stride-1 trunk convs (1 first_mma + 3 fwd_mma)
+# and 4 transposed convs (4 fwd_mma), backward: those transposed convs' dx (1
+# first_mma for 1->32, 3 fwd_mma) and weight gradients (4 wgrad_mma); the trunk
+# gets no gradient from the penalty (LeakyReLU's slope is piecewise constant)
+ADV_DISC_LAUNCHES = {**NO_LAUNCHES, "first_mma": 5, "fwd_mma": 27, "wgrad_mma": 6}
+# of one generator update: the train forward (1 first_mma + 17 fwd_mma) and
+# backward (17 dx fwd_mma, 22 wgrad_mma); the critic's first conv on the fake
+# (1 first_mma) and its dx, 32->1 (1 fwd_mma; the critic is frozen: no wgrad)
+ADV_GEN_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_mma": 35, "wgrad_mma": 22}
+# per 10:1 cycle; the float32 run (one critic and one generator update) takes
+# the same counts on H-first, H-fwd and H-wgrad
+ADV_LAUNCHES = {k: ADV_RATIO * ADV_DISC_LAUNCHES[k] + ADV_GEN_LAUNCHES[k] for k in NO_LAUNCHES}
+ADV_F32_LAUNCHES = {**NO_LAUNCHES, "first": 7, "fwd": 62, "wgrad": 28}
 
 # (name, kernel, source channels, cout, spatial, fused epilogue, dtype)
 BF16, F32 = torch.bfloat16, torch.float32
@@ -115,6 +155,21 @@ SHAPES = [
     ("1->24 @192x224x192 f32", "first", (1,), 24, (192, 224, 192), "bias+elu", F32),
     ("24->24 @192x224x192 f32", "fwd", (24,), 24, (192, 224, 192), "bias+elu", F32),
     ("[24,48]->24 @192x224x192 f32", "fwd", (24, 48), 24, (192, 224, 192), "bias+elu", F32),
+    # the critic's stride-1 convs (LeakyReLU fused) at 128^3 and the input
+    # gradient of its first conv, 32->1 (one n8 tile of output channels); in
+    # float32 the 64^3 adversarial run's first two
+    ("1->32 @128^3 leaky", "first_mma", (1,), 32, (128, 128, 128), "bias+leaky", BF16),
+    ("32->64 @64^3 leaky", "fwd_mma", (32,), 64, (64, 64, 64), "bias+leaky", BF16),
+    ("64->128 @32^3 leaky", "fwd_mma", (64,), 128, (32, 32, 32), "bias+leaky", BF16),
+    ("128->256 @16^3 leaky", "fwd_mma", (128,), 256, (16, 16, 16), "bias+leaky", BF16),
+    ("32->1 @128^3 (dx)", "fwd_mma", (32,), 1, (128, 128, 128), "dx", BF16),
+    # the gradient penalty's transposed stride-1 convs of levels 1-3 (C_in =
+    # 2·C_out, no epilogue; level 0's is the 32->1 row)
+    ("64->32 @64^3 (dx)", "fwd_mma", (64,), 32, (64, 64, 64), "dx", BF16),
+    ("128->64 @32^3 (dx)", "fwd_mma", (128,), 64, (32, 32, 32), "dx", BF16),
+    ("256->128 @16^3 (dx)", "fwd_mma", (256,), 128, (16, 16, 16), "dx", BF16),
+    ("1->32 @64^3 f32 leaky", "first", (1,), 32, (64, 64, 64), "bias+leaky", F32),
+    ("32->64 @32^3 f32 leaky", "fwd", (32,), 64, (32, 32, 32), "bias+leaky", F32),
 ]
 TIMED = {"first_mma": "1->24 @256^3", "first": "1->24 @128^3 f32",
          "fwd_mma": "[24,48]->24 @256^3",
@@ -123,7 +178,13 @@ TIMED = {"first_mma": "1->24 @256^3", "first": "1->24 @128^3 f32",
 # H-wgrad-mma at the train step's weight-gradient shapes, then H-wgrad on
 # float32: (ci, co, spatial, dtype)
 WGRAD_SHAPES = [(4, 24, 128, BF16), (24, 24, 128, BF16), (48, 24, 128, BF16), (48, 48, 64, BF16),
-                (96, 48, 64, BF16), (192, 96, 32, BF16), (384, 384, 8, BF16), (24, 24, 64, F32)]
+                (96, 48, 64, BF16), (192, 96, 32, BF16), (384, 384, 8, BF16), (24, 24, 64, F32),
+                # the critic's: its first conv, a trunk conv's shape, and the
+                # weight gradients of the penalty's four transposed convs (the
+                # only ones it launches: the trunk convs get none from the penalty,
+                # and those after the first run on cuDNN in the WGAN terms)
+                (1, 32, 128, BF16), (32, 64, 64, BF16), (32, 1, 128, BF16),
+                (64, 32, 64, BF16), (128, 64, 32, BF16), (256, 128, 16, BF16)]
 
 # synthetic inputs: (file name, shape, voxel size mm, CT); the first resamples
 # to 256^3, the second is a clinical anisotropic scan padding to 192x224x192
@@ -209,7 +270,8 @@ def check_kernels(conv_cf, gen):
             kw = dict(x=srcs if len(srcs) > 1 else srcs[0],
                       w=conv_cf.pack_conv(randn(3, 3, 3, cin, cout, scale=(2 / (27 * cin)) ** 0.5),
                                           dtype, cins),
-                      bias=randn(cout, scale=0.1), activation="elu")
+                      bias=randn(cout, scale=0.1),
+                      activation="leaky" if "leaky" in fused else "elu")
         if "post" in fused:
             kw["post"] = torch.stack([torch.rand(cout, device=dev, generator=gen) * 0.4 + 0.8,
                                       randn(cout, scale=0.1)])
@@ -360,63 +422,62 @@ def train_args(root, model_dir, epochs, dtype="bfloat16", steps=3):
             "--epochs", str(epochs), "--steps_per_epoch", str(steps), "--seed", "0"]
 
 
-def train_phase(conv_cf, rng):
-    """The train main path, then one step's gradients against the plain float32
-    autograd, then where a warm step's time goes."""
+def train_phase(conv_cf, root):
+    """The train main path on the label maps under ``root``, then one step's
+    gradients against the plain float32 autograd, then where a warm step's
+    time goes."""
     from synthsr_tpu_torch.cli import train as train_cli
 
-    with tempfile.TemporaryDirectory() as root:
-        phase("main path: train (tutorial-7 configuration, 128^3, bf16)")
-        make_train_data(root, rng)
-        model_dir = os.path.join(root, "model")
-        logs = []
-        log = (lambda line: (logs.append(line), print("  " + line, flush=True)))
-        conv_cf.reset_launch_counts()
-        t0 = time.perf_counter()
-        first = train_cli.main(train_args(root, model_dir, 2), log_fn=log)
-        resumed = train_cli.main(train_args(root, model_dir, 3), log_fn=log)
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = dict(conv_cf.LAUNCHES)
-        steps = 9
-        print(f"  main(): 2 epochs + resume to 3, {steps} steps in {train_s:.2f} s; "
-              f"launches {launches} (expected {TRAIN_LAUNCHES} per step)")
-        require(launches == {k: v * steps for k, v in TRAIN_LAUNCHES.items()}, launches)
-        curve = first["loss_curve"] + resumed["loss_curve"]
-        require(len(curve) == 3 and all(np.isfinite(curve)) and 0 < max(curve) < 10, curve)
-        require(any("resuming from epoch 2" in line for line in logs), "no resume")
-        require(sum("epoch 3/3" in line for line in logs) == 1, "epoch 3 ran more than once")
-        files = sorted(os.listdir(model_dir))
-        require(all(f"{e:03d}.pt" in files for e in (1, 2, 3)), files)
-        h5 = all(f"{e:03d}.h5" in files for e in (1, 2, 3))
-        require(h5 or any("h5py is not installed" in line for line in logs), files)
-        with open(os.path.join(model_dir, "logs", "training_log.jsonl")) as f:
-            epochs = [json.loads(line) for line in f]
-        epoch_step_s = [e["seconds"] / 3 for e in epochs[1:]]
-        print(f"  losses {curve}; checkpoints {files}; epoch-clock seconds per step "
-              f"(epoch 2; epoch 3, whose first step also waits on the resumed run's "
-              f"first label-map load) {epoch_step_s}")
-        summary = dict(loss_curve=curve, launches=launches, seconds=train_s,
-                       epoch_step_s=epoch_step_s, h5_exported=h5)
-        summary.update(gradient_check(resumed["model"], root))
+    phase("main path: train (tutorial-7 configuration, 128^3, bf16)")
+    model_dir = os.path.join(root, "model")
+    logs = []
+    log = (lambda line: (logs.append(line), print("  " + line, flush=True)))
+    conv_cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train_cli.main(train_args(root, model_dir, 2), log_fn=log)
+    resumed = train_cli.main(train_args(root, model_dir, 3), log_fn=log)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(conv_cf.LAUNCHES)
+    steps = 9
+    print(f"  main(): 2 epochs + resume to 3, {steps} steps in {train_s:.2f} s; "
+          f"launches {launches} (expected {TRAIN_LAUNCHES} per step)")
+    require(launches == {k: v * steps for k, v in TRAIN_LAUNCHES.items()}, launches)
+    curve = first["loss_curve"] + resumed["loss_curve"]
+    require(len(curve) == 3 and all(np.isfinite(curve)) and 0 < max(curve) < 10, curve)
+    require(any("resuming from epoch 2" in line for line in logs), "no resume")
+    require(sum("epoch 3/3" in line for line in logs) == 1, "epoch 3 ran more than once")
+    files = sorted(os.listdir(model_dir))
+    require(all(f"{e:03d}.pt" in files for e in (1, 2, 3)), files)
+    h5 = all(f"{e:03d}.h5" in files for e in (1, 2, 3))
+    require(h5 or any("h5py is not installed" in line for line in logs), files)
+    with open(os.path.join(model_dir, "logs", "training_log.jsonl")) as f:
+        epochs = [json.loads(line) for line in f]
+    epoch_step_s = [e["seconds"] / 3 for e in epochs[1:]]
+    print(f"  losses {curve}; checkpoints {files}; epoch-clock seconds per step "
+          f"(epoch 2; epoch 3, whose first step also waits on the resumed run's "
+          f"first label-map load) {epoch_step_s}")
+    summary = dict(loss_curve=curve, launches=launches, seconds=train_s,
+                   epoch_step_s=epoch_step_s, h5_exported=h5)
+    summary.update(gradient_check(resumed["model"], root))
 
-        phase(f"main path: train in float32 ({TRAIN_F32_STEPS} steps, the CUDA-core kernels)")
-        f32_dir = os.path.join(root, "model_f32")
-        conv_cf.reset_launch_counts()
-        t0 = time.perf_counter()
-        f32 = train_cli.main(train_args(root, f32_dir, 1, "float32", TRAIN_F32_STEPS),
-                             log_fn=lambda line: print("  " + line, flush=True))
-        torch.cuda.synchronize()
-        f32_s = time.perf_counter() - t0
-        f32_launches = dict(conv_cf.LAUNCHES)
-        print(f"  main(): 1 epoch x {TRAIN_F32_STEPS} steps in {f32_s:.2f} s; launches "
-              f"{f32_launches} (expected {TRAIN_F32_LAUNCHES} per step)")
-        require(f32_launches == {k: v * TRAIN_F32_STEPS for k, v in TRAIN_F32_LAUNCHES.items()},
-                f32_launches)
-        curve = f32["loss_curve"]
-        require(len(curve) == 1 and np.isfinite(curve[0]), curve)
-        summary["float32"] = dict(seconds=f32_s, launches=f32_launches,
-                                  loss_curve=f32["loss_curve"])
+    phase(f"main path: train in float32 ({TRAIN_F32_STEPS} steps, the CUDA-core kernels)")
+    f32_dir = os.path.join(root, "model_f32")
+    conv_cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    f32 = train_cli.main(train_args(root, f32_dir, 1, "float32", TRAIN_F32_STEPS),
+                         log_fn=lambda line: print("  " + line, flush=True))
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    f32_launches = dict(conv_cf.LAUNCHES)
+    print(f"  main(): 1 epoch x {TRAIN_F32_STEPS} steps in {f32_s:.2f} s; launches "
+          f"{f32_launches} (expected {TRAIN_F32_LAUNCHES} per step)")
+    require(f32_launches == {k: v * TRAIN_F32_STEPS for k, v in TRAIN_F32_LAUNCHES.items()},
+            f32_launches)
+    curve = f32["loss_curve"]
+    require(len(curve) == 1 and np.isfinite(curve[0]), curve)
+    summary["float32"] = dict(seconds=f32_s, launches=f32_launches,
+                              loss_curve=f32["loss_curve"])
     return {"launches": launches, "f32_launches": f32_launches, "summary": summary}
 
 
@@ -485,21 +546,14 @@ def gradient_check(trained, root):
     phase("where a warm train step's time goes (CUDA events, then torch.profiler)")
     spans = {}
 
-    def timed(name, fn):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = fn()
-        e1.record()
-        torch.cuda.synchronize()
-        spans[name] = e0.elapsed_time(e1)
-        return out
-
     def forward():
-        im, tg = timed("generator", lambda: generate_batch(generator, sampler, gen, batch))
-        return timed("forward+loss", lambda: forward_loss(model, im, tg, fast=True, **kw))[0]
+        im, tg = cuda_span(spans, "generator",
+                           lambda: generate_batch(generator, sampler, gen, batch))
+        return cuda_span(spans, "forward+loss",
+                         lambda: forward_loss(model, im, tg, fast=True, **kw))[0]
 
     def backward(loss):
-        timed("backward", lambda: torch.autograd.grad(loss, params))
+        cuda_span(spans, "backward", lambda: torch.autograd.grad(loss, params))
 
     for _ in range(2):
         backward(forward())
@@ -549,6 +603,343 @@ def gradient_check(trained, root):
     return dict(grad_rel_l2=rel_grad, loss_rel=rel_loss, leaf_grad_rel_l2=leaf_rel,
                 span_ms=spans, profiler_ms=kernel_ms, warm_step_ms=step_ms,
                 warm_step_wall_ms=wall_ms)
+
+
+def cuda_span(spans, name, fn):
+    """``fn()`` between two CUDA events; its device-clock ms into ``spans``."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    spans[name] = e0.elapsed_time(e1)
+    return out
+
+
+def adversarial_phase(conv_cf, root):
+    """The adversarial main path on the label maps under ``root``: training
+    plus a resume, one critic update's gradient against plain float32 double
+    autograd, where a 10:1 cycle's time goes, warm cycles; then the float32
+    run at 64³."""
+    from synthsr_tpu_torch.train import adversarial as adv
+
+    phase("main path: adversarial fine-tuning (bench_adversarial.py configuration, 128^3, "
+          "bf16)")
+    print(f"  reduction: first_training_ratio {ADV_FIRST_RATIO} (100 in the configuration), "
+          f"1 epoch x 2 steps and a resume to epoch 2", flush=True)
+    # the synthetic priors' first channel (the configuration synthesises one)
+    pm = np.load(os.path.join(root, "prior_means.npy"))[:2]
+    ps = np.load(os.path.join(root, "prior_stds.npy"))[:2]
+    args = (os.path.join(root, "labels"), None, os.path.join(root, "adv"), pm, ps,
+            os.path.join(root, "generation_labels.npy"))
+    logs = []
+    kw = dict(ADV_CONFIG, loss_cropping=96, first_training_ratio=ADV_FIRST_RATIO,
+              training_ratio=ADV_RATIO, steps_per_epoch=2, seed=0, compute_dtype="bfloat16",
+              log_fn=lambda line: (logs.append(line), print("  " + line, flush=True)))
+    conv_cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = adv.training(*args, epochs=1, **kw)
+    resumed = adv.training(*args, epochs=2, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(conv_cf.LAUNCHES)
+    cycles = 4
+    print(f"  training(): 1 epoch + resume to 2, {cycles} cycles of {ADV_RATIO} critic updates "
+          f"+ 1 generator update in {seconds:.2f} s; launches {launches} (expected "
+          f"{ADV_LAUNCHES} per cycle)")
+    require(launches == {k: v * cycles for k, v in ADV_LAUNCHES.items()}, launches)
+    d_curve, g_curve = resumed["d_curve"], resumed["g_curve"]
+    require(d_curve[0] == first["d_curve"][0] and len(d_curve) == len(g_curve) == 2, d_curve)
+    require(all(np.isfinite(d_curve + g_curve)), (d_curve, g_curve))
+    require("resuming from epoch 1" in logs, "no resume")
+    require(sum("Epoch 2/2" in line for line in logs) == 1, "epoch 2 ran more than once")
+    require(sum(f"{2 * ADV_RATIO} critic updates" in line for line in logs) == 2, logs)
+    files = sorted(os.listdir(args[2]))
+    require({"adv_001.pt", "adv_002.pt"} <= set(files), files)
+    h5 = {"generator_1.h5", "discriminator_2.h5"} <= set(files)
+    require(h5 or any("h5py is not installed" in line for line in logs), files)
+    print(f"  critic loss curve {d_curve}, generator {g_curve}; files {files}")
+    summary = dict(d_curve=d_curve, g_curve=g_curve, launches=launches, seconds=seconds,
+                   h5_exported=h5)
+    summary.update(adversarial_checks(conv_cf, adv, resumed, root, pm, ps))
+
+    phase("main path: adversarial in float32 (1 step, ratio 1, 64^3: H-first and H-fwd)")
+    conv_cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    f32 = adv.training(*args[:2], os.path.join(root, "adv_f32"), *args[3:], epochs=1,
+                       **dict(kw, output_shape=64, loss_cropping=48, first_training_ratio=1,
+                              training_ratio=1, steps_per_epoch=1, compute_dtype="float32"))
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    f32_launches = dict(conv_cf.LAUNCHES)
+    print(f"  training(): 1 critic + 1 generator update in {f32_s:.2f} s; launches "
+          f"{f32_launches} (expected {ADV_F32_LAUNCHES})")
+    require(f32_launches == ADV_F32_LAUNCHES, f32_launches)
+    require(all(np.isfinite(f32["d_curve"] + f32["g_curve"])), f32)
+    summary["float32"] = dict(seconds=f32_s, launches=f32_launches, d_curve=f32["d_curve"],
+                              g_curve=f32["g_curve"])
+    return {"launches": launches, "f32_launches": f32_launches, "summary": summary}
+
+
+def adversarial_checks(conv_cf, adv, trained, root, pm, ps):
+    """On the trained networks and one generated batch: a critic update's loss
+    and gradient and d(D(fake))/d(fake), bf16 kernel path vs plain float32
+    double autograd; the spans of each update's parts; a profiled cycle; and
+    ADV_CYCLES warm 10:1 cycles of make_adversarial_steps."""
+    from synthsr_tpu_torch.io.labels import get_list_labels
+    from synthsr_tpu_torch.io.volume import load_volume
+    from synthsr_tpu_torch.models.discriminator import Discriminator3D, critic_forward
+    from synthsr_tpu_torch.models.discriminator_cf import fast_disc_apply, fast_disc_input_grad
+    from synthsr_tpu_torch.synth.brain_generator import BrainGenerator
+    from synthsr_tpu_torch.synth.labels_to_image import build_generator
+    from synthsr_tpu_torch.synth.sampling import make_gmm_sampler
+    from synthsr_tpu_torch.train.training import generate_batch
+    from synthsr_tpu_torch.utils.finite_guard import adam_init, gated_adam_step
+
+    phase("one critic update: kernel path (bf16) vs plain float32 double autograd")
+    dev = torch.device("cuda")
+    gen_model, critic = trained["gen_model"], trained["critic"]
+    labels, n_neutral = get_list_labels(
+        label_list=os.path.join(root, "generation_labels.npy"),
+        labels_dir=os.path.join(root, "labels"), FS_sort=True)
+    bg = BrainGenerator(os.path.join(root, "labels"), pm, ps, generation_labels=labels,
+                        n_neutral_labels=n_neutral, output_div_by_n=32, seed=1, device=dev,
+                        **ADV_CONFIG)
+    generator = build_generator(bg.cfg)
+    sampler = make_gmm_sampler(len(labels), bg.prior_means, bg.prior_stds, "normal",
+                               n_channels=bg.n_channels, generation_classes=bg.generation_classes)
+    lab = load_volume(os.path.join(root, "labels", "subject0.nii.gz"), dtype="int")
+    batch = [torch.as_tensor(lab[None, ..., None], device=dev)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    image, target = generate_batch(generator, sampler, gen, batch)
+    fake = adv.fake_volumes(gen_model, image)
+    require(image.shape == fake.shape == target.shape == (1, 128, 128, 128, 1),
+            (image.shape, fake.shape, target.shape))
+    require(bool(torch.isfinite(fake).all() and torch.isfinite(target).all()), "non-finite pair")
+    cf = (lambda t: t.permute(0, 4, 1, 2, 3))  # noqa: E731
+    # both paths get the kernel path's bf16-rounded volumes, as every kernel
+    # row gets the same rounded inputs
+    tgt, fk = (cf(t).to(torch.bfloat16).float() for t in (target, fake))
+    w = torch.rand((1, 1, 1, 1, 1), generator=gen, device=dev)
+    plain = Discriminator3D(critic.input_shape).to(dev)
+    plain.load_state_dict(critic.state_dict())
+    losses, grads, terms = {}, {}, {}
+    for name, net, fast in (("kernel", critic, True), ("plain", plain, False)):
+        d_real, d_fake, gp = adv.critic_terms(net, dict(net.named_parameters()), tgt, fk, w,
+                                              fast=fast)
+        loss = torch.mean(-d_real) + torch.mean(d_fake) + gp  # adv.critic_loss
+        grads[name] = torch.autograd.grad(loss, list(net.parameters()))
+        losses[name] = float(loss.detach())
+        terms[name] = np.array([float(d_real), float(d_fake), float(gp)])
+    dt = terms["kernel"] - terms["plain"]
+    rel_scores = float(np.linalg.norm(dt[:2]) / np.linalg.norm(terms["plain"][:2]))
+    rel_gp = float(abs(dt[2]) / abs(terms["plain"][2]))
+    rel_loss = abs(losses["kernel"] - losses["plain"]) / float(np.abs(terms["plain"]).sum())
+    print(f"  D(target), D(fake), GP: kernel {terms['kernel'].tolist()}, plain "
+          f"{terms['plain'].tolist()}; scores relative L2 {rel_scores:.3e} (bound "
+          f"{NET_BOUND:.0e}), GP relative {rel_gp:.3e} (bound {LOSS_BOUND:.0e})")
+    flat = lambda gs: torch.cat([g.reshape(-1) for g in gs])  # noqa: E731
+    rel_grad = float((flat(grads["kernel"]) - flat(grads["plain"])).norm()
+                     / flat(grads["plain"]).norm())
+    leaf_rel = {n: float((a - b).norm() / b.norm())
+                for (n, p), a, b in zip(critic.named_parameters(), grads["kernel"],
+                                        grads["plain"]) if p.dim() == 5}
+    # the generator update's path into the critic: d(D(fake))/d(fake)
+    dfake = {}
+    for name, net, fn in (("kernel", critic, fast_disc_apply),
+                          ("plain", plain, lambda m, p, x: critic_forward(p, x, None, 4))):
+        x = fk.clone().requires_grad_(True)
+        frozen = {n: p.detach() for n, p in net.named_parameters()}
+        dfake[name] = torch.autograd.grad(fn(net, frozen, x).sum(), x)[0].float()
+    rel_dfake = float((dfake["kernel"] - dfake["plain"]).norm() / dfake["plain"].norm())
+    print(f"  critic loss kernel {losses['kernel']:.6f} plain {losses['plain']:.6f}: difference "
+          f"over the terms' magnitudes {rel_loss:.3e} (bound {LOSS_BOUND:.0e}); gradient "
+          f"relative L2 {rel_grad:.3e} "
+          f"(bound {GRAD_BOUND:.0e}); d(D(fake))/d(fake) relative L2 {rel_dfake:.3e} (bound "
+          f"{LEAF_BOUND:g}, one tensor); conv weight gradients relative L2 (bound "
+          f"{LEAF_BOUND:g}):")
+    for n, v in leaf_rel.items():
+        print(f"    {n:24s} {v:.3e}")
+    del grads, dfake, plain
+    torch.cuda.empty_cache()
+
+    phase("where a warm adversarial cycle's time goes (CUDA events, then torch.profiler)")
+    params = list(critic.parameters())
+    gen_params = list(gen_model.parameters())
+    d_opt, g_opt = adam_init(params), adam_init(gen_params)
+    spans = {"critic update": {}, "generator update": {}}
+
+    def critic_update(s):
+        nonlocal d_opt
+        im, tg = cuda_span(s, "generation", lambda: generate_batch(generator, sampler, gen, batch))
+        fk = cuda_span(s, "fake forward", lambda: adv.fake_volumes(gen_model, im))
+        named = dict(critic.named_parameters())
+        x_hat = adv.random_weighted_average(cf(tg), cf(fk), torch.rand(
+            (1, 1, 1, 1, 1), generator=gen, device=dev))
+        d = cuda_span(s, "critic WGAN term", lambda: fast_disc_apply(
+            critic, named, torch.cat([cf(tg), cf(fk)])))
+        gp = cuda_span(s, "GP program", lambda: adv.gradient_penalty_from_grads(
+            fast_disc_input_grad(critic, named, x_hat)))
+        loss = torch.mean(-d[:1]) + torch.mean(d[1:]) + gp
+        gs = cuda_span(s, "backward", lambda: torch.autograd.grad(loss, params))
+        with torch.no_grad():
+            d_opt = cuda_span(s, "Adam", lambda: gated_adam_step(
+                params, gs, d_opt, torch.isfinite(loss), 1e-4))
+
+    def generator_update(s):
+        nonlocal g_opt
+        im, tg = cuda_span(s, "generation", lambda: generate_batch(generator, sampler, gen, batch))
+        frozen = {n: p.detach() for n, p in critic.named_parameters()}
+        loss, _ = cuda_span(s, "forward + loss", lambda: adv.generator_loss(
+            gen_model, critic, frozen, im, tg, loss_cropping=96))
+        gs = cuda_span(s, "backward", lambda: torch.autograd.grad(loss, gen_params))
+        with torch.no_grad():
+            g_opt = cuda_span(s, "Adam", lambda: gated_adam_step(
+                gen_params, gs, g_opt, torch.isfinite(loss), 1e-4))
+
+    for _ in range(2):  # the second pass is the one kept
+        critic_update(spans["critic update"])
+        generator_update(spans["generator update"])
+    for part, s in spans.items():
+        print(f"  {part}, ms: {s} (sum {sum(s.values()):.3f})")
+
+    disc_step, gen_step = adv.make_adversarial_steps(gen_model, critic, generator, sampler,
+                                                     loss_cropping=96)
+
+    def cycle():
+        nonlocal d_opt, g_opt
+        for _ in range(ADV_RATIO):
+            d_opt, d_loss = disc_step(d_opt, gen, batch)
+        g_opt, g_loss = gen_step(g_opt, gen, batch)
+        return d_loss, g_loss
+
+    cycle()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cycle()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"H-first-mma": "conv3d_first_mma_kernel", "H-fwd-mma": "conv3d_fwd_mma_kernel",
+             "H-wgrad-mma": "conv3d_wgrad_mma_kernel"}
+    device_ms = dict.fromkeys([*kinds, "other"], 0.0)
+    others = []
+    for ev in prof.key_averages():
+        ms = (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+        kind = next((k for k, tag in kinds.items() if tag in ev.key), "other")
+        device_ms[kind] += ms
+        if kind == "other" and ms > 0:
+            others.append((ms, ev.key[:70]))
+    idle = 1.0 - sum(device_ms.values()) / prof_wall_ms
+    print(f"  profiled cycle: wall {prof_wall_ms:.1f} ms, device ms "
+          f"{ {k: round(v, 3) for k, v in device_ms.items()} }, device idle {idle:.1%}; "
+          f"largest other kernels:")
+    for ms, k in sorted(others, reverse=True)[:10]:
+        print(f"    {ms:8.2f} ms  {k}")
+
+    phase(f"{ADV_CYCLES} warm 10:1 cycles ({ADV_RATIO} critic updates + 1 generator update), "
+          f"CUDA events")
+    conv_cf.reset_launch_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(ADV_CYCLES + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events[0].record()
+    for e in events[1:]:
+        d_loss, g_loss = cycle()
+        e.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / ADV_CYCLES
+    cycle_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    cycle_launches = dict(conv_cf.LAUNCHES)
+    median = float(np.median(cycle_ms))
+    print(f"  ms per cycle: median {median:.3f}, min {min(cycle_ms):.3f}, max "
+          f"{max(cycle_ms):.3f} ({1e3 / median:.4f} generator updates/s); host wall "
+          f"{wall_ms:.3f} per cycle; all {cycle_ms}; launches {cycle_launches}")
+    require(cycle_launches == {k: v * ADV_CYCLES for k, v in ADV_LAUNCHES.items()},
+            cycle_launches)
+    require(bool(torch.isfinite(d_loss) and torch.isfinite(g_loss)), "non-finite warm losses")
+
+    odd = odd_size_critic_check(conv_cf, adv)
+
+    require(np.isfinite(rel_scores) and rel_scores <= NET_BOUND, rel_scores)
+    require(np.isfinite(rel_gp) and rel_gp <= LOSS_BOUND, rel_gp)
+    require(np.isfinite(rel_loss) and rel_loss <= LOSS_BOUND, rel_loss)
+    require(np.isfinite(rel_grad) and rel_grad <= GRAD_BOUND, rel_grad)
+    require(np.isfinite(rel_dfake) and rel_dfake <= LEAF_BOUND, rel_dfake)
+    require(all(np.isfinite(v) and v <= LEAF_BOUND for v in leaf_rel.values()), leaf_rel)
+    return dict(critic_loss=losses, critic_terms={k: v.tolist() for k, v in terms.items()},
+                critic_scores_rel_l2=rel_scores, critic_gp_rel=rel_gp, critic_loss_rel=rel_loss,
+                odd_size_critic=odd,
+                critic_grad_rel_l2=rel_grad,
+                critic_leaf_grad_rel_l2=leaf_rel, dfake_rel_l2=rel_dfake, span_ms=spans,
+                profiled_cycle_wall_ms=prof_wall_ms, profiled_device_ms=device_ms,
+                profiled_device_idle=idle, warm_cycle_ms=cycle_ms, warm_cycle_wall_ms=wall_ms,
+                generator_updates_per_s=1e3 / median)
+
+
+def odd_size_critic_check(conv_cf, adv):
+    """The critic's kernel paths at a size that turns odd on the way down
+    (the 24^3 output of a 3-level generator: 24 -> 12 -> 6 -> 3 -> 2), a
+    32-filter 4-level critic on seeded random weights and inputs: scores, the
+    penalty's input gradient and its parameter gradient against the plain
+    critic by double autograd, in float32 (H-first / H-fwd, NET_F32_BOUND:
+    sum order only), and in bf16 (H-first-mma / H-fwd-mma) the scores and the
+    penalty by NET_BOUND against plain float32.  The bf16 gradients are
+    printed, not bounded: on these random weights they sit near 0.1-0.15
+    relative L2 from bf16 LeakyReLU branch choices alone (the same against a
+    plain bf16 critic), where the critic update at 128^3 holds them.  Each
+    path must launch its kernels."""
+    from synthsr_tpu_torch.models.discriminator import Discriminator3D
+    from synthsr_tpu_torch.models.discriminator_cf import fast_disc_apply, fast_disc_input_grad
+    from synthsr_tpu_torch.models.weights import disc_variables_to_state_dict, \
+        random_disc_variables
+
+    phase("the critic's kernel paths at an odd size (24^3: 3^3 at level 3)")
+    dev = torch.device("cuda")
+    spatial = (24, 24, 24)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((2, 1, *spatial), generator=gen, device=dev)
+    plain = Discriminator3D(spatial).to(dev)
+    plain.load_state_dict(disc_variables_to_state_dict(random_disc_variables(spatial, seed=4)))
+    params = dict(plain.named_parameters())
+    with torch.no_grad():
+        d_want = plain(x)
+    x1 = x[:1].clone().requires_grad_(True)
+    (gx_want,) = torch.autograd.grad(plain(x1).sum(), x1, create_graph=True)
+    gp_want = adv.gradient_penalty_from_grads(gx_want)
+    gp_grads_want = torch.autograd.grad(gp_want, list(plain.parameters()), allow_unused=True,
+                                        materialize_grads=True)
+    flat = lambda gs: torch.cat([g.reshape(-1) for g in gs])  # noqa: E731
+    rl2 = lambda a, b: float((a.float() - b).norm() / b.norm())  # noqa: E731
+    out = {}
+    for dtype, kernels in ((torch.float32, ("first", "fwd")),
+                           (torch.bfloat16, ("first_mma", "fwd_mma"))):
+        critic = Discriminator3D(spatial, compute_dtype=dtype).to(dev)
+        critic.load_state_dict(plain.state_dict())
+        named = dict(critic.named_parameters())
+        before = dict(conv_cf.LAUNCHES)
+        with torch.no_grad():
+            d = fast_disc_apply(critic, named, x)
+        gx = fast_disc_input_grad(critic, named, x[:1])
+        gp = adv.gradient_penalty_from_grads(gx)
+        gp_grads = torch.autograd.grad(gp, list(critic.parameters()), allow_unused=True,
+                                       materialize_grads=True)
+        torch.cuda.synchronize()
+        launched = {k: conv_cf.LAUNCHES[k] - before[k] for k in kernels}
+        rel = dict(scores=rl2(d, d_want), gp=rl2(gp.detach(), gp_want.detach()),
+                   input_grad=rl2(gx.detach(), gx_want.detach()),
+                   gp_grad=rl2(flat(gp_grads), flat(gp_grads_want)))
+        if dtype == torch.float32:
+            bounds = dict.fromkeys(rel, NET_F32_BOUND)
+        else:
+            bounds = dict(scores=NET_BOUND, gp=NET_BOUND)
+        name = str(dtype)[6:]
+        print(f"  {name}: launches {launched}; relative to plain float32 {rel} (bounds "
+              f"{bounds})")
+        require(all(v > 0 for v in launched.values()), (name, launched))
+        require(all(np.isfinite(rel[k]) and rel[k] <= b for k, b in bounds.items()), (name, rel))
+        out[name] = dict(launches=launched, rel=rel)
+    return out
 
 
 def phantom(shape, zooms, ct, rng):
@@ -882,11 +1273,16 @@ def main():
         large_fov = large_fov_phase(predict, conv_cf, weights, tmp, rng)
         hyperfine = hyperfine_phase(conv_cf, tmp, rng)
 
-    train = train_phase(conv_cf, rng)
+    with tempfile.TemporaryDirectory() as root:
+        make_train_data(root, rng)
+        train = train_phase(conv_cf, root)
+        adversarial = adversarial_phase(conv_cf, root)
     path_launches = {"predict": launches, "predict_float32": predict_f32["launches"],
                      "predict_large_fov": large_fov["launches"],
                      "hyperfine": hyperfine["launches"], "train": train["launches"],
-                     "train_float32": train["f32_launches"]}
+                     "train_float32": train["f32_launches"],
+                     "adversarial": adversarial["launches"],
+                     "adversarial_float32": adversarial["f32_launches"]}
 
     kernels = []
     fwd_also = [f"{PALLAS}:920", f"{PALLAS}:1297", f"{PALLAS}:127"]
@@ -912,7 +1308,8 @@ def main():
     print(json.dumps({"timings": timings, "main_seconds": main_s,
                       "peak_allocated_bytes": peak, "predict_float32": predict_f32["summary"],
                       "large_fov": large_fov["summary"],
-                      "hyperfine": hyperfine["summary"], "train": train["summary"]}))
+                      "hyperfine": hyperfine["summary"], "train": train["summary"],
+                      "adversarial": adversarial["summary"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,7 +18,8 @@
 //
 // Every sum runs in float32; offsets into a volume are 64-bit (a 256^3
 // decoder source holds 48 x 16.7M elements).  ELU is exp(x) - 1 for x <= 0,
-// as in the TPU kernels (conv_pallas.py:77-78).  The bias is added exactly
+// as in the TPU kernels (conv_pallas.py:77-78); LeakyReLU(0.2) is v >= 0 ? v :
+// 0.2v (conv_pallas.py:368, :628).  The bias is added exactly
 // once per output in the epilogue (the TPU kernels' centre-tap bias column is
 // a lane trick that has no purpose here).
 
@@ -26,11 +27,12 @@
 
 namespace {
 
-enum { ACT_NONE = 0, ACT_ELU = 1, ACT_RELU = 2 };
+enum { ACT_NONE = 0, ACT_ELU = 1, ACT_RELU = 2, ACT_LEAKY = 3 };
 
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == ACT_ELU) return v > 0.f ? v : expf(v) - 1.f;
   if (act == ACT_RELU) return fmaxf(v, 0.f);
+  if (act == ACT_LEAKY) return v >= 0.f ? v : 0.2f * v;
   return v;
 }
 

@@ -41,8 +41,8 @@
 //   padding are set by two lane masks.  The halo strides are chosen so that
 //   no gather has a bank conflict.  An 8-voxel x 32-channel block costs 4
 //   (cin = 2: 8) mma.
-// - Epilogue in float32 registers: activation (ELU as exp(x) - 1, or ReLU),
-//   the post affine, rounding to bf16 two voxels at a time.  Each warp owns
+// - Epilogue in float32 registers: activation (ELU as exp(x) - 1, ReLU, or
+//   LeakyReLU(0.2) as v >= 0 ? v : 0.2v, as conv_pallas.py:628), the post affine, rounding to bf16 two voxels at a time.  Each warp owns
 //   two rows of the tile: it stages its 24 x 2 x 32 outputs in shared memory
 //   (a channel row of 132 words = 4 mod 32 keeps the stores free of bank
 //   conflicts) and writes them with 16-byte stores, one tile row of one
@@ -55,7 +55,7 @@
 
 namespace {
 
-enum { ACT_NONE = 0, ACT_ELU = 1, ACT_RELU = 2 };
+enum { ACT_NONE = 0, ACT_ELU = 1, ACT_RELU = 2, ACT_LEAKY = 3 };
 
 constexpr int FF_TX = 32;        // tile width (W)
 constexpr int FF_TY = 8;         // tile height (H)
@@ -98,6 +98,7 @@ template <int ACT>
 __device__ __forceinline__ float activate(float v) {
   if (ACT == ACT_ELU) return v > 0.f ? v : __expf(v) - 1.f;
   if (ACT == ACT_RELU) return fmaxf(v, 0.f);
+  if (ACT == ACT_LEAKY) return v >= 0.f ? v : 0.2f * v;
   return v;
 }
 
@@ -330,6 +331,7 @@ int launch_first_mma_act(const FirstMmaArgs& a, int act, cudaStream_t stream) {
     case ACT_NONE: return launch_first_mma<CIN, ACT_NONE>(a, stream);
     case ACT_ELU: return launch_first_mma<CIN, ACT_ELU>(a, stream);
     case ACT_RELU: return launch_first_mma<CIN, ACT_RELU>(a, stream);
+    case ACT_LEAKY: return launch_first_mma<CIN, ACT_LEAKY>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

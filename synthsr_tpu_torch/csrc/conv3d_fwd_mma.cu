@@ -29,7 +29,8 @@
 // ((n_tile, group, step, n8, lane, 4 bf16), ops/conv_cf.py:_mma_fragments),
 // so one ld.shared.v2 per lane is a conflict-free B fragment.
 //
-// Epilogue, in registers: + accum, + bias, ELU as exp(x) - 1 / ReLU, the
+// Epilogue, in registers: + accum, + bias, ELU as exp(x) - 1 / ReLU /
+// LeakyReLU(0.2) (v >= 0 ? v : 0.2v, as conv_pallas.py:368), the
 // post affine; then either the folded 1x1x1 head (summed over the thread's
 // channels, over the quad by shuffles; every warp holds all of the block's
 // channels) stored as (1, D, H, W) float32, or the tile staged through shared
@@ -44,7 +45,7 @@ using tc::Halo;
 using tc::HaloRegs;
 using tc::Volume;
 
-enum { ACT_NONE = 0, ACT_ELU = 1, ACT_RELU = 2 };
+enum { ACT_NONE = 0, ACT_ELU = 1, ACT_RELU = 2, ACT_LEAKY = 3 };
 
 constexpr int FM_TY = 8;
 constexpr int FM_TX = 32;
@@ -73,6 +74,7 @@ struct FwdMmaArgs {
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == ACT_ELU) return v > 0.f ? v : expf(v) - 1.f;
   if (act == ACT_RELU) return fmaxf(v, 0.f);
+  if (act == ACT_LEAKY) return v >= 0.f ? v : 0.2f * v;
   return v;
 }
 

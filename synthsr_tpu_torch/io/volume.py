@@ -22,8 +22,12 @@ from .nifti import VolumeHeader, read_volume_file, write_volume_file
 FS_AFFINE = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, -1, 0, 0], [0, 0, 0, 1]], float)
 
 
-def load_volume(path_volume, im_only=True, squeeze=True, dtype=None, aff_ref=None):
-    """Load a volume; optionally reorient to ``aff_ref`` (ref utils.py:76-119)."""
+def load_volume(path_volume, im_only=True, squeeze=True, dtype=None, aff_ref=None,
+                fast=True):
+    """Load a volume; optionally reorient to ``aff_ref`` (ref utils.py:76-119).
+    ``fast`` selects the original's native loader, which is not ported; it is
+    accepted and ignored (the results are bit-identical either way)."""
+    del fast
     volume, aff, header = read_volume_file(path_volume)
     if squeeze:
         volume = np.squeeze(volume)
@@ -42,10 +46,11 @@ def load_volume(path_volume, im_only=True, squeeze=True, dtype=None, aff_ref=Non
     return volume, aff, header
 
 
-def save_volume(volume, aff, header, path, dtype=None):
+def save_volume(volume, aff, header, path, res=None, dtype=None, n_dims=3):
     """Save a volume (ref utils.py:122-160). ``aff`` may be None, 'FS', or 4x4;
-    the header's zooms derive from the affine."""
-    del header
+    the header's zooms derive from the affine, so ``header``, ``res`` and
+    ``n_dims`` are ignored, as in the original."""
+    del header, res, n_dims
     if isinstance(aff, str):
         if aff != "FS":
             raise ValueError(f"unknown affine string: {aff}")

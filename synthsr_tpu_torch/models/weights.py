@@ -12,7 +12,12 @@ It stands in for flax ``init`` and for the glue around ``models/h5_import.py``
 - :func:`random_variables` builds seeded random weights in the flax layout
   with numpy alone, so both packages load the same numbers;
 - :func:`load_unet_weights` fills a ``UNet3D`` from a Keras ``.h5`` (through
-  ``load_keras_unet_weights`` and the bridge) or a ``torch.save``d state dict.
+  ``load_keras_unet_weights`` and the bridge) or a ``torch.save``d state dict;
+- :func:`disc_variables_to_state_dict` / :func:`disc_state_dict_to_variables`
+  do the same for the critic (``models/discriminator.py``): conv kernels as
+  above, dense kernels (in, out) <-> ``nn.Linear`` weights (out, in), with
+  ``dense_0``'s rows in flax's channels-last flatten order on both sides;
+  :func:`random_disc_variables` builds seeded random critic weights.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from .h5_import import load_keras_unet_weights
+from .discriminator import trunk_shape
 from .unet import SYNTHSR_CONFIG, unet_layers
 
 _BN_KEYS = (("params", "scale", "weight"), ("params", "bias", "bias"),
@@ -113,3 +119,48 @@ def load_unet_weights(model, model_path: str):
         raise ValueError(f"unsupported weights format: {model_path}")
     model.load_state_dict(sd)
     return model
+
+
+def disc_variables_to_state_dict(variables: dict) -> dict:
+    """flax critic ``{"params"}`` (array-likes) -> ``Discriminator3D`` state dict."""
+    sd = {}
+    for name, p in variables["params"].items():
+        k = torch.from_numpy(np.array(p["kernel"], np.float32))
+        sd[f"{name}.weight"] = (k.permute(4, 3, 0, 1, 2) if k.dim() == 5 else k.t()).contiguous()
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(p["bias"], np.float32))
+    return sd
+
+
+def disc_state_dict_to_variables(sd: dict) -> dict:
+    """``Discriminator3D`` state dict -> flax critic ``{"params"}`` of numpy arrays."""
+    params = {}
+    for name in sorted({k.rsplit(".", 1)[0] for k in sd}):
+        w = sd[f"{name}.weight"].detach().cpu()
+        params[name] = {"kernel": (w.permute(2, 3, 4, 1, 0) if w.dim() == 5 else w.t())
+                        .contiguous().numpy(),
+                        "bias": sd[f"{name}.bias"].detach().cpu().numpy()}
+    return {"params": params}
+
+
+def random_disc_variables(input_shape, in_channels: int = 1, n_filters: int = 32,
+                          n_levels: int = 4, seed: int = 0) -> dict:
+    """Seeded random critic weights in the flax layout, numpy only: He-style
+    kernels (std sqrt(2 / fan_in)), biases of std 0.05."""
+    rng = np.random.default_rng(seed)
+
+    def layer(shape):
+        std = np.sqrt(2.0 / np.prod(shape[:-1]))
+        return {"kernel": (rng.standard_normal(shape) * std).astype(np.float32),
+                "bias": (rng.standard_normal(shape[-1]) * 0.05).astype(np.float32)}
+
+    params, cin = {}, in_channels
+    for level in range(n_levels):
+        f = n_filters * 2 ** level
+        params[f"conv_{level}_0"] = layer((3, 3, 3, cin, f))
+        params[f"conv_{level}_1"] = layer((3, 3, 3, f, f))
+        cin = f
+    c, spatial = trunk_shape(input_shape, n_filters, n_levels)
+    hidden = n_filters * 2 ** n_levels
+    params["dense_0"] = layer((c * int(np.prod(spatial)), hidden))
+    params["dense_out"] = layer((hidden, 1))
+    return {"params": params}

@@ -12,8 +12,8 @@
   and ``bias`` are rounded to ``x.dtype`` first, as the TPU kernels do
   (conv_pallas.py:801-803);
 - ``accum``: an optional (C_out, D, H, W) partial sum added before the bias;
-- ``activation``: None, "elu" (``exp(x) - 1`` below zero, as on the TPU) or
-  "relu";
+- ``activation``: None, "elu" (``exp(x) - 1`` below zero, as on the TPU),
+  "relu" or "leaky" (LeakyReLU(0.2): ``v >= 0 ? v : 0.2·v``, the critic's);
 - ``post``: an optional (2, C_out) per-channel (scale, shift) applied after
   the activation (inference BatchNorm folded in);
 - ``head``: an optional (a (C_out,), b scalar): the 1x1x1 likelihood conv
@@ -74,7 +74,7 @@ WGRAD_MAX_TILE = 128  # voxels per H-wgrad tile (WG_MAXVOX)
 # and the most output channels (two m16 tiles); conv3d_first_mma.cu agrees
 FIRST_MMA_KPAD = {1: 32, 2: 64}
 FIRST_MMA_MAX_COUT = 32
-_ACT_CODES = {None: 0, "elu": 1, "relu": 2}
+_ACT_CODES = {None: 0, "elu": 1, "relu": 2, "leaky": 3}
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
 
@@ -277,6 +277,8 @@ def conv3d_cf_reference(x, w, bias=None, activation=None, post=None, head=None,
         y = F.elu(y)
     elif activation == "relu":
         y = F.relu(y)
+    elif activation == "leaky":
+        y = torch.where(y >= 0, y, 0.2 * y)
     elif activation is not None:
         raise ValueError(f"unsupported activation {activation!r}")
     if post is not None:

@@ -15,7 +15,8 @@
   per source
   (:func:`~synthsr_tpu_torch.ops.conv_cf.conv3d_cf_wgrad`);
 - **activation gradient**: from the SAVED OUTPUT (elu' = 1 where y > 0 else
-  y + 1; relu' = [y > 0]), so no pre-activation tensor is stored; ``dpre``
+  y + 1; relu' = [y > 0]; leaky' = 1 where y >= 0 else 0.2), so no
+  pre-activation tensor is stored; ``dpre``
   stays in the activation dtype, ``db`` is a float32 sum.
 
 Sources come as a tuple (the decoder's [skip, up] pair) and are never
@@ -31,7 +32,7 @@ import torch
 
 from .conv_cf import conv3d_cf, conv3d_cf_wgrad
 
-_ACTIVATIONS = (None, "elu", "relu")
+_ACTIVATIONS = (None, "elu", "relu", "leaky")
 
 
 def act_grad_from_output(activation, y: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -43,6 +44,10 @@ def act_grad_from_output(activation, y: torch.Tensor, dy: torch.Tensor) -> torch
                                 y + 1).to(dy.dtype)
     if activation == "relu":
         return torch.where(y > 0, dy, torch.zeros((), dtype=dy.dtype, device=dy.device))
+    if activation == "leaky":
+        # leaky(0.2) is a monotone bijection: y >= 0 <=> pre >= 0, and the
+        # slope at 0 is 1, as jax.nn.leaky_relu's where(x >= 0, ...)
+        return torch.where(y >= 0, dy, 0.2 * dy)
     return dy
 
 

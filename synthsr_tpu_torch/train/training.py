@@ -41,7 +41,7 @@ from ..models.weights import state_dict_to_variables, variables_to_state_dict
 from ..synth.brain_generator import BrainGenerator
 from ..synth.labels_to_image import build_generator
 from ..synth.sampling import make_gmm_sampler
-from ..utils.finite_guard import FiniteGuard, adam_init, adam_update, guard_updates
+from ..utils.finite_guard import FiniteGuard, adam_init, gated_adam_step, guard_updates
 from ..utils.prefetch import PrefetchIterator
 from .metrics import doubled_residual_indices, regression_loss
 
@@ -67,15 +67,16 @@ def init_unet(model: UNet3D, seed: int = 0) -> UNet3D:
 
 
 def generate_batch(generator, gmm_sampler, gen, batch, use_real_image=False):
-    """The step's synthetic pairs: (image (B, X, Y, Z, C), target) float32.
-    ``batch``: (labels (B, X, Y, Z, 1)[, real images]) on the device; the GMM
-    parameters of every example are drawn first, as the JAX step does."""
+    """The step's synthetic pairs: (image (B, X, Y, Z, C), target) float32,
+    and the deformed label maps (B, X, Y, Z, 1) when the generator returns
+    them.  ``batch``: (labels (B, X, Y, Z, 1)[, real images]) on the device;
+    the GMM parameters of every example are drawn first, as the JAX step
+    does."""
     labels = batch[0]
     params = [gmm_sampler(gen) for _ in range(labels.shape[0])]
-    pairs = [generator(gen, labels[i], *params[i],
-                       *((batch[1][i],) if use_real_image else ()))
-             for i in range(labels.shape[0])]
-    return torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+    outs = [generator(gen, labels[i], *params[i], *((batch[1][i],) if use_real_image else ()))
+            for i in range(labels.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
 def forward_loss(model, image, target, metrics="l1", loss_cropping=16, residual_indices=None,
@@ -92,6 +93,21 @@ def forward_loss(model, image, target, metrics="l1", loss_cropping=16, residual_
     return loss, new_stats
 
 
+def bn_layers(model) -> list:
+    """Names of the model's BatchNorm layers."""
+    return [n for n, m in model.named_children() if isinstance(m, torch.nn.BatchNorm3d)]
+
+
+def write_bn_stats(model, bn_names, new_stats, finite: torch.Tensor):
+    """Copy the train forward's new running statistics into the model's
+    buffers where ``finite`` (under ``torch.no_grad()``)."""
+    for name in bn_names:
+        bn = getattr(model, name)
+        old = [bn.running_mean, bn.running_var]
+        for b, n in zip(old, guard_updates(finite, list(new_stats[name]), old)):
+            b.copy_(n)
+
+
 def make_train_step(model, generator, gmm_sampler, lr, lr_decay=0.0, metrics="l1",
                     loss_cropping=16, residual_indices=None, use_real_image=False,
                     compute_dtype=torch.bfloat16):
@@ -101,7 +117,7 @@ def make_train_step(model, generator, gmm_sampler, lr, lr_decay=0.0, metrics="l1
     in place, through the non-finite gate: a step whose loss is not finite
     changes neither them nor the Adam state."""
     params = list(model.parameters())
-    bn_names = [n for n, m in model.named_children() if isinstance(m, torch.nn.BatchNorm3d)]
+    bn_names = bn_layers(model)
 
     def step(opt_state, gen, batch):
         image, target = generate_batch(generator, gmm_sampler, gen, batch, use_real_image)
@@ -109,19 +125,9 @@ def make_train_step(model, generator, gmm_sampler, lr, lr_decay=0.0, metrics="l1
                                        residual_indices, compute_dtype)
         grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
-            new_params, new_opt = adam_update(params, grads, opt_state, lr, lr_decay)
             finite = torch.isfinite(loss)
-            for p, n in zip(params, guard_updates(finite, new_params, params)):
-                p.copy_(n)
-            for name in bn_names:
-                bn = getattr(model, name)
-                old = [bn.running_mean, bn.running_var]
-                for b, n in zip(old, guard_updates(finite, list(new_stats[name]), old)):
-                    b.copy_(n)
-            keep = lambda new, old: guard_updates(finite, new, old)  # noqa: E731
-            opt_state = {"count": keep([new_opt["count"]], [opt_state["count"]])[0],
-                         "mu": keep(new_opt["mu"], opt_state["mu"]),
-                         "nu": keep(new_opt["nu"], opt_state["nu"])}
+            opt_state = gated_adam_step(params, grads, opt_state, finite, lr, lr_decay)
+            write_bn_stats(model, bn_names, new_stats, finite)
         return opt_state, loss.detach()
 
     return step

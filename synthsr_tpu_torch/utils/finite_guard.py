@@ -6,7 +6,8 @@
   step's loss is finite, the old ones elsewhere, with no host sync.
 - :func:`adam_update` is ``optax.adam`` with the Keras decay schedule
   ``lr / (1 + decay·t)`` (``synthsr_tpu/train/training.py:42-54``) written as a
-  functional update, so a non-finite step writes nothing through the gate.
+  functional update, so a non-finite step writes nothing through the gate;
+  :func:`gated_adam_step` writes it into the parameters through the gate.
 - :class:`FiniteGuard` checks each step's loss ``lag`` steps after it was
   queued, so the host never waits on the step it just launched, and raises
   naming the first non-finite step.
@@ -48,20 +49,34 @@ def adam_update(params, grads, state, lr: float, lr_decay: float = 0.0):
     return new, {"count": count, "mu": mu, "nu": nu}
 
 
+def gated_adam_step(params, grads, state, finite: torch.Tensor, lr: float,
+                    lr_decay: float = 0.0):
+    """One :func:`adam_update`, copied into ``params`` in place where
+    ``finite``; returns the Adam state to carry on with (the old one where
+    not finite).  Call under ``torch.no_grad()``."""
+    new_params, new = adam_update(params, grads, state, lr, lr_decay)
+    for p, n in zip(params, guard_updates(finite, new_params, params)):
+        p.copy_(n)
+    return {"count": guard_updates(finite, [new["count"]], [state["count"]])[0],
+            "mu": guard_updates(finite, new["mu"], state["mu"]),
+            "nu": guard_updates(finite, new["nu"], state["nu"])}
+
+
 class FiniteGuard:
     """Lagged per-step host check: ``push`` every step's (label, loss); the
     value pushed ``lag`` pushes ago is read and verified; ``flush()`` drains
     the rest at the end of an epoch.  Raises ``FloatingPointError`` naming the
     step that produced the first non-finite value."""
 
-    def __init__(self, lag: int = 2):
+    def __init__(self, lag: int = 2, what: str = "loss"):
         self.lag = max(0, int(lag))
+        self.what = what
         self._pending = []
 
     def _check(self, label, value) -> float:
         v = float(value)
         if not np.isfinite(v):
-            raise FloatingPointError(f"Non-finite loss at {label}: {v} "
+            raise FloatingPointError(f"Non-finite {self.what} at {label}: {v} "
                                      "(parameters were not updated by this step)")
         return v
 

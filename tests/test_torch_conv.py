@@ -236,8 +236,9 @@ def test_kernels_match_plain_on_card():
     [5,11] (each padded to 8 in shared memory) with bias + elu + post, C_in 4
     and 13 with accum + relu, head; H = 12 and W = 48 / 20 leave ragged tiles
     (W = 20 takes the 2-byte load path); the flipped, transposed weights of an
-    input gradient.  The reference is float32 with TF32 off, on the same
-    rounded inputs."""
+    input gradient; the critic's LeakyReLU convs (C_out 32 on the first-conv
+    kernels, 32 -> 64) and its first conv's input gradient (C_out 1).  The
+    reference is float32 with TF32 off, on the same rounded inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     old = torch.backends.cudnn.allow_tf32
@@ -278,6 +279,15 @@ def test_kernels_match_plain_on_card():
                           activation="elu"), kernel),
                     (dict(x=r(24, d, h, w).to(dtype),
                           w=torch.flip(r(3, 3, 3, 72, 24) * 0.1, (0, 1, 2)).transpose(3, 4)),
+                     kernel),
+                    # the critic's: LeakyReLU on the first conv (C_out 32) and a
+                    # trunk conv, and its first conv's input gradient (C_out 1)
+                    (dict(x=r(1, d, h, w).to(dtype), w=r(3, 3, 3, 1, 32), bias=r(32),
+                          activation="leaky"), first),
+                    (dict(x=r(32, d, h, w).to(dtype), w=r(3, 3, 3, 32, 64) * 0.1, bias=r(64),
+                          activation="leaky"), kernel),
+                    (dict(x=r(32, d, h, w).to(dtype),
+                          w=torch.flip(r(3, 3, 3, 1, 32) * 0.1, (0, 1, 2)).transpose(3, 4)),
                      kernel),
                 ]
                 for kw, name in cases:

@@ -3,6 +3,7 @@ geometry, host resample matrices, label lists, the label-map sampler, Keras
 .h5 import, misc helpers, the CLIs' path handling) against their originals:
 the same calls on the same seeded inputs give equal results."""
 
+import inspect
 import os
 import types
 
@@ -189,6 +190,20 @@ def test_port_copy_equals_original(name, tmp_path):
     (tmp_path / "port").mkdir()
     (tmp_path / "jax").mkdir()
     _assert_equal(CASES[name](PORT, tmp_path / "port"), CASES[name](JAX, tmp_path / "jax"))
+
+
+VOLUME_FUNCTIONS = [n for n, f in vars(port_volume).items()
+                    if inspect.isfunction(f) and f.__module__ == port_volume.__name__
+                    and not n.startswith("_")]
+
+
+@pytest.mark.parametrize("name", VOLUME_FUNCTIONS)
+def test_volume_signature_equals_original(name):
+    """Each public function of the port's io/volume.py takes its original's
+    parameters, in the original's order and with its defaults, so a
+    positional call means the same in both packages."""
+    assert inspect.signature(getattr(port_volume, name)) == \
+        inspect.signature(getattr(jax_volume, name))
 
 
 @pytest.mark.parametrize("ext", [".nii.gz", ".nii", ".mgz", ".npz"])
