@@ -26,7 +26,14 @@ path at full width (24 features, 5 levels, seeded random weights and data):
   generator, a 32-filter 4-level critic, 128³, bf16) on the same label maps,
   1 epoch x 2 steps then a resume to epoch 2, one critic update's loss and
   gradient against plain float32 double autograd, where a 10:1 cycle's time
-  goes and the time of warm cycles; then one float32 step at 64³.
+  goes and the time of warm cycles; then one float32 step at 64³;
+- the rest of the training path: ``cli.train.main`` at batch 2 with a frozen
+  segmenter (remat "levels" by default) and a resume, one such step against
+  plain float32 autograd and with remat=False (equal; peak memory and time,
+  the segmenter's share); a train step and a 10:1 cycle in a one-rank NCCL
+  group against no group (equal); one adversarial cycle with the segmenter;
+  one plain float32 step of three U-Net options against the same step on
+  the CPU; the fast forward of a 3-label softmax net against plain float32.
 
     python3 chip_smoke.py
 
@@ -116,6 +123,25 @@ ADV_GEN_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_mma": 35, "wgrad_mma": 2
 # the same counts on H-first, H-fwd and H-wgrad
 ADV_LAUNCHES = {k: ADV_RATIO * ADV_DISC_LAUNCHES[k] + ADV_GEN_LAUNCHES[k] for k in NO_LAUNCHES}
 ADV_F32_LAUNCHES = {**NO_LAUNCHES, "first": 7, "fwd": 62, "wgrad": 28}
+# per train step at batch 2 with remat "levels" (the default at 2 examples a
+# rank): per example 18 forward convs, run again by the recomputation of the
+# backward pass (every conv sits in a checkpointed level), 17 input gradients
+# and 22 weight gradients; the frozen segmenter's convs are cuDNN's.  Counted
+# on the CPU with the dispatch gate mirrored (each would-be launch is one call
+# of the plain version); with remat=False 36 + 34 on H-fwd-mma
+SEG_TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_mma": 106, "wgrad_mma": 44}
+SEG_TRAIN_STEPS = 2   # steps per epoch of the segmenter run (1 epoch + a resume to 2)
+SEG_STEP_REPS = 3     # timed rounds of the segmenter step's remat variants, in turns
+# a fast forward with a 3-label softmax head: the shipped net's 1 + 17 convs;
+# the likelihood runs after the last conv in float32 (it cannot fold)
+HEAD3_LAUNCHES = {**NO_LAUNCHES, "first_mma": 1, "fwd_mma": 17}
+# U-Net options that train on the plain path (cuDNN), one step each at 64^3
+# in float32 against the same step on the CPU
+OPTIONS = [("residual levels, dilation 2", dict(use_residuals=True, dilation_rate_mult=2)),
+           ("dropout 0.2 (pre-drawn masks)", dict(conv_dropout=0.2)),
+           ("conv_size 5", dict(conv_size=5))]
+CPU_BOUND = 1e-4      # relative, the card's float32 step vs the CPU's (options_phase)
+REMAT_BOUND = 1e-6    # relative, a step with remat "levels" vs without (the kernels repeat)
 
 # (name, kernel, source channels, cout, spatial, fused epilogue, dtype)
 BF16, F32 = torch.bfloat16, torch.float32
@@ -408,7 +434,7 @@ def make_train_data(root, rng):
     return lab_dir
 
 
-def train_args(root, model_dir, epochs, dtype="bfloat16", steps=3):
+def train_args(root, model_dir, epochs, dtype="bfloat16", steps=3, batch=1):
     """cli.train arguments of bench_train.py's tutorial-7 configuration."""
     return [os.path.join(root, "labels"), model_dir, os.path.join(root, "prior_means.npy"),
             os.path.join(root, "prior_stds.npy"), os.path.join(root, "generation_labels.npy"),
@@ -416,7 +442,7 @@ def train_args(root, model_dir, epochs, dtype="bfloat16", steps=3):
             "--output_shape", "128", "--data_res", os.path.join(root, "data_res.npy"),
             "--thickness", os.path.join(root, "thickness.npy"), "--nonlin_std", "2.0",
             "--bias_field_std", "0.2", "--work_with_residual_channel", "1",
-            "--loss_cropping", "96", "--lr", "1e-4", "--batchsize", "1",
+            "--loss_cropping", "96", "--lr", "1e-4", "--batchsize", str(batch),
             "--scaling_bounds", "0.1", "--rotation_bounds", "8", "--shearing_bounds", "0.01",
             "--translation_bounds", "False", "--compute_dtype", dtype,
             "--epochs", str(epochs), "--steps_per_epoch", str(steps), "--seed", "0"]
@@ -481,43 +507,75 @@ def train_phase(conv_cf, root):
     return {"launches": launches, "f32_launches": f32_launches, "summary": summary}
 
 
+def tutorial7_generator(root, dev, n_maps, return_labels=False):
+    """The generator and GMM sampler of the train path's tutorial-7
+    configuration, and a batch of the first ``n_maps`` label maps on ``dev``."""
+    from synthsr_tpu_torch.io.labels import get_list_labels
+    from synthsr_tpu_torch.io.volume import load_volume
+    from synthsr_tpu_torch.synth.labels_to_image import GenerationConfig, build_generator
+    from synthsr_tpu_torch.synth.sampling import make_gmm_sampler
+    from synthsr_tpu_torch.utils.misc import get_padding_margin
+
+    labels, n_neutral = get_list_labels(
+        label_list=os.path.join(root, "generation_labels.npy"), FS_sort=True)
+    labs = [load_volume(os.path.join(root, "labels", f"subject{i}.nii.gz"), dtype="int")
+            for i in range(n_maps)]
+    cfg = GenerationConfig(
+        labels_shape=list(labs[0].shape), input_channels=[False, True, True],
+        output_channel=[0], generation_labels=labels, n_neutral_labels=n_neutral,
+        atlas_res=[1.0, 1.0, 1.0], output_shape=128, output_div_by_n=32,
+        padding_margin=get_padding_margin(128, 96), flipping=True, aff=np.eye(4),
+        scaling_bounds=0.1, rotation_bounds=8, shearing_bounds=0.01, translation_bounds=False,
+        nonlin_std=2.0, nonlin_shape_factor=0.03125,
+        data_res=np.load(os.path.join(root, "data_res.npy")),
+        thickness=np.load(os.path.join(root, "thickness.npy")), downsample=True,
+        build_reliability_maps=True, bias_field_std=0.2, bias_shape_factor=0.03125)
+    sampler = make_gmm_sampler(len(labels), np.load(os.path.join(root, "prior_means.npy")),
+                               np.load(os.path.join(root, "prior_stds.npy")), "normal",
+                               n_channels=3)
+    batch = [torch.as_tensor(np.stack(labs)[..., None], device=dev)]
+    return build_generator(cfg, return_labels=return_labels), sampler, batch
+
+
+def adversarial_generator(root, dev, pm, ps, return_labels=False):
+    """The generator and GMM sampler of the adversarial path's configuration
+    (ADV_CONFIG), and a batch of the first label map on ``dev``."""
+    from synthsr_tpu_torch.io.labels import get_list_labels
+    from synthsr_tpu_torch.io.volume import load_volume
+    from synthsr_tpu_torch.synth.brain_generator import BrainGenerator
+    from synthsr_tpu_torch.synth.labels_to_image import build_generator
+    from synthsr_tpu_torch.synth.sampling import make_gmm_sampler
+
+    labels, n_neutral = get_list_labels(
+        label_list=os.path.join(root, "generation_labels.npy"),
+        labels_dir=os.path.join(root, "labels"), FS_sort=True)
+    bg = BrainGenerator(os.path.join(root, "labels"), pm, ps, generation_labels=labels,
+                        n_neutral_labels=n_neutral, output_div_by_n=32, seed=1, device=dev,
+                        **ADV_CONFIG)
+    sampler = make_gmm_sampler(len(labels), bg.prior_means, bg.prior_stds, "normal",
+                               n_channels=bg.n_channels, generation_classes=bg.generation_classes)
+    lab = load_volume(os.path.join(root, "labels", "subject0.nii.gz"), dtype="int")
+    batch = [torch.as_tensor(lab[None, ..., None], device=dev)]
+    return build_generator(bg.cfg, return_labels=return_labels), sampler, batch
+
+
 def gradient_check(trained, root):
     """One step's loss and parameter gradient, bf16 kernel path vs the plain
     float32 autograd of UNet3D.forward_train, on one generated batch and the
     trained weights; then a timed and profiled warm step, and WARM_STEPS
     consecutive whole steps of make_train_step."""
     from synthsr_tpu_torch.models.unet import UNet3D
-    from synthsr_tpu_torch.synth.labels_to_image import GenerationConfig, build_generator
-    from synthsr_tpu_torch.synth.sampling import make_gmm_sampler
-    from synthsr_tpu_torch.train.training import forward_loss, generate_batch, make_train_step
+    from synthsr_tpu_torch.train.training import (example_generators, forward_loss,
+                                                  generate_batch, make_train_step)
     from synthsr_tpu_torch.utils.finite_guard import adam_init
-    from synthsr_tpu_torch.io.labels import get_list_labels
-    from synthsr_tpu_torch.io.volume import load_volume
-    from synthsr_tpu_torch.utils.misc import get_padding_margin
 
     phase("one train step: kernel path (bf16) vs plain float32 autograd")
     dev = torch.device("cuda")
     model = UNet3D(in_channels=4).to(dev)
     model.load_state_dict(trained.state_dict())
-    labels, n_neutral = get_list_labels(
-        label_list=os.path.join(root, "generation_labels.npy"), FS_sort=True)
-    lab = load_volume(os.path.join(root, "labels", "subject0.nii.gz"), dtype="int")
-    cfg = GenerationConfig(
-        labels_shape=list(lab.shape), input_channels=[False, True, True], output_channel=[0],
-        generation_labels=labels, n_neutral_labels=n_neutral, atlas_res=[1.0, 1.0, 1.0],
-        output_shape=128, output_div_by_n=32, padding_margin=get_padding_margin(128, 96),
-        flipping=True, aff=np.eye(4), scaling_bounds=0.1, rotation_bounds=8,
-        shearing_bounds=0.01, translation_bounds=False, nonlin_std=2.0,
-        nonlin_shape_factor=0.03125, data_res=np.load(os.path.join(root, "data_res.npy")),
-        thickness=np.load(os.path.join(root, "thickness.npy")), downsample=True,
-        build_reliability_maps=True, bias_field_std=0.2, bias_shape_factor=0.03125)
-    generator = build_generator(cfg)
-    sampler = make_gmm_sampler(len(labels), np.load(os.path.join(root, "prior_means.npy")),
-                               np.load(os.path.join(root, "prior_stds.npy")), "normal",
-                               n_channels=3)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    batch = [torch.as_tensor(lab[None, ..., None], device=dev)]
-    image, target = generate_batch(generator, sampler, gen, batch)
+    generator, sampler, batch = tutorial7_generator(root, dev, 1)
+    gen = torch.Generator().manual_seed(1)  # the step generator stays on the host
+    image, target = generate_batch(generator, sampler, example_generators(gen, 1, 0, dev), batch)
     require(image.shape == (1, 128, 128, 128, 4) and target.shape == (1, 128, 128, 128, 1),
             (image.shape, target.shape))
     require(bool(torch.isfinite(image).all() and torch.isfinite(target).all()), "non-finite pair")
@@ -548,7 +606,8 @@ def gradient_check(trained, root):
 
     def forward():
         im, tg = cuda_span(spans, "generator",
-                           lambda: generate_batch(generator, sampler, gen, batch))
+                           lambda: generate_batch(generator, sampler,
+                                                  example_generators(gen, 1, 0, dev), batch))
         return cuda_span(spans, "forward+loss",
                          lambda: forward_loss(model, im, tg, fast=True, **kw))[0]
 
@@ -678,7 +737,8 @@ def adversarial_phase(conv_cf, root):
     require(all(np.isfinite(f32["d_curve"] + f32["g_curve"])), f32)
     summary["float32"] = dict(seconds=f32_s, launches=f32_launches, d_curve=f32["d_curve"],
                               g_curve=f32["g_curve"])
-    return {"launches": launches, "f32_launches": f32_launches, "summary": summary}
+    return {"launches": launches, "f32_launches": f32_launches, "summary": summary,
+            "trained": resumed, "priors": (pm, ps)}
 
 
 def adversarial_checks(conv_cf, adv, trained, root, pm, ps):
@@ -686,32 +746,17 @@ def adversarial_checks(conv_cf, adv, trained, root, pm, ps):
     and gradient and d(D(fake))/d(fake), bf16 kernel path vs plain float32
     double autograd; the spans of each update's parts; a profiled cycle; and
     ADV_CYCLES warm 10:1 cycles of make_adversarial_steps."""
-    from synthsr_tpu_torch.io.labels import get_list_labels
-    from synthsr_tpu_torch.io.volume import load_volume
     from synthsr_tpu_torch.models.discriminator import Discriminator3D, critic_forward
     from synthsr_tpu_torch.models.discriminator_cf import fast_disc_apply, fast_disc_input_grad
-    from synthsr_tpu_torch.synth.brain_generator import BrainGenerator
-    from synthsr_tpu_torch.synth.labels_to_image import build_generator
-    from synthsr_tpu_torch.synth.sampling import make_gmm_sampler
-    from synthsr_tpu_torch.train.training import generate_batch
+    from synthsr_tpu_torch.train.training import example_generators, generate_batch
     from synthsr_tpu_torch.utils.finite_guard import adam_init, gated_adam_step
 
     phase("one critic update: kernel path (bf16) vs plain float32 double autograd")
     dev = torch.device("cuda")
     gen_model, critic = trained["gen_model"], trained["critic"]
-    labels, n_neutral = get_list_labels(
-        label_list=os.path.join(root, "generation_labels.npy"),
-        labels_dir=os.path.join(root, "labels"), FS_sort=True)
-    bg = BrainGenerator(os.path.join(root, "labels"), pm, ps, generation_labels=labels,
-                        n_neutral_labels=n_neutral, output_div_by_n=32, seed=1, device=dev,
-                        **ADV_CONFIG)
-    generator = build_generator(bg.cfg)
-    sampler = make_gmm_sampler(len(labels), bg.prior_means, bg.prior_stds, "normal",
-                               n_channels=bg.n_channels, generation_classes=bg.generation_classes)
-    lab = load_volume(os.path.join(root, "labels", "subject0.nii.gz"), dtype="int")
-    batch = [torch.as_tensor(lab[None, ..., None], device=dev)]
-    gen = torch.Generator(device=dev).manual_seed(1)
-    image, target = generate_batch(generator, sampler, gen, batch)
+    generator, sampler, batch = adversarial_generator(root, dev, pm, ps)
+    gen = torch.Generator().manual_seed(1)  # the step generator stays on the host
+    image, target = generate_batch(generator, sampler, example_generators(gen, 1, 0, dev), batch)
     fake = adv.fake_volumes(gen_model, image)
     require(image.shape == fake.shape == target.shape == (1, 128, 128, 128, 1),
             (image.shape, fake.shape, target.shape))
@@ -720,7 +765,7 @@ def adversarial_checks(conv_cf, adv, trained, root, pm, ps):
     # both paths get the kernel path's bf16-rounded volumes, as every kernel
     # row gets the same rounded inputs
     tgt, fk = (cf(t).to(torch.bfloat16).float() for t in (target, fake))
-    w = torch.rand((1, 1, 1, 1, 1), generator=gen, device=dev)
+    w = torch.rand((1, 1, 1, 1, 1), generator=gen).to(dev)
     plain = Discriminator3D(critic.input_shape).to(dev)
     plain.load_state_dict(critic.state_dict())
     losses, grads, terms = {}, {}, {}
@@ -771,11 +816,12 @@ def adversarial_checks(conv_cf, adv, trained, root, pm, ps):
 
     def critic_update(s):
         nonlocal d_opt
-        im, tg = cuda_span(s, "generation", lambda: generate_batch(generator, sampler, gen, batch))
+        im, tg = cuda_span(s, "generation", lambda: generate_batch(
+            generator, sampler, example_generators(gen, 1, 0, dev), batch))
         fk = cuda_span(s, "fake forward", lambda: adv.fake_volumes(gen_model, im))
         named = dict(critic.named_parameters())
         x_hat = adv.random_weighted_average(cf(tg), cf(fk), torch.rand(
-            (1, 1, 1, 1, 1), generator=gen, device=dev))
+            (1, 1, 1, 1, 1), generator=gen).to(dev))
         d = cuda_span(s, "critic WGAN term", lambda: fast_disc_apply(
             critic, named, torch.cat([cf(tg), cf(fk)])))
         gp = cuda_span(s, "GP program", lambda: adv.gradient_penalty_from_grads(
@@ -788,7 +834,8 @@ def adversarial_checks(conv_cf, adv, trained, root, pm, ps):
 
     def generator_update(s):
         nonlocal g_opt
-        im, tg = cuda_span(s, "generation", lambda: generate_batch(generator, sampler, gen, batch))
+        im, tg = cuda_span(s, "generation", lambda: generate_batch(
+            generator, sampler, example_generators(gen, 1, 0, dev), batch))
         frozen = {n: p.detach() for n, p in critic.named_parameters()}
         loss, _ = cuda_span(s, "forward + loss", lambda: adv.generator_loss(
             gen_model, critic, frozen, im, tg, loss_cropping=96))
@@ -940,6 +987,360 @@ def odd_size_critic_check(conv_cf, adv):
         require(all(np.isfinite(rel[k]) and rel[k] <= b for k, b in bounds.items()), (name, rel))
         out[name] = dict(launches=launched, rel=rel)
     return out
+
+
+def segmenter_files(root):
+    """A frozen segmenter for the Dice regulariser: the shipped architecture
+    (24 features, 5 levels) with a softmax head of one output per generation
+    label and seeded random weights, saved as a ``.pt`` state dict (the card's
+    machine has no h5py); the label list, which is also the equivalency
+    (output i is label i)."""
+    from synthsr_tpu_torch.models.weights import random_variables, variables_to_state_dict
+
+    labels = np.load(os.path.join(root, "generation_labels.npy"))
+    cfg = dict(nb_labels=len(labels), final_pred_activation="softmax")
+    path = os.path.join(root, "segmenter.pt")
+    torch.save(variables_to_state_dict(random_variables(cfg, in_channels=1, seed=7)), path)
+    labels_path = os.path.join(root, "segmentation_labels.npy")
+    np.save(labels_path, labels)
+    return path, labels_path
+
+
+def load_segmenter_loss(seg_path, labels_path, dtype):
+    """The train path's Dice term on the segmenter of :func:`segmenter_files`
+    (no clip bounds: the configuration synthesises its target), the
+    segmenter run in ``dtype``."""
+    from synthsr_tpu_torch.train.training import frozen_segmenter
+
+    return frozen_segmenter(seg_path, labels_path, labels_path, np.load(labels_path), None, 96,
+                            False, torch.device("cuda"), {}, dtype)
+
+
+def seg_train_phase(conv_cf, root):
+    """The train CLI at batch 2 with the frozen segmenter (remat "levels" by
+    default at 2 examples), 1 epoch and a resume, then one step against the
+    plain float32 autograd, remat against no remat, and the segmenter's share
+    of a step."""
+    from synthsr_tpu_torch.cli import train as train_cli
+
+    phase('main path: train at batch 2 with the frozen segmenter (remat "levels" by default)')
+    seg_path, labels_path = segmenter_files(root)
+    model_dir = os.path.join(root, "model_seg")
+    seg_args = ["--segmentation_model_file", seg_path, "--segmentation_label_list", labels_path,
+                "--segmentation_label_equivalency", labels_path]
+    logs = []
+    log = (lambda line: (logs.append(line), print("  " + line, flush=True)))
+    conv_cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train_cli.main(train_args(root, model_dir, 1, steps=SEG_TRAIN_STEPS, batch=2)
+                           + seg_args, log_fn=log)
+    resumed = train_cli.main(train_args(root, model_dir, 2, steps=SEG_TRAIN_STEPS, batch=2)
+                             + seg_args, log_fn=log)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(conv_cf.LAUNCHES)
+    steps = 2 * SEG_TRAIN_STEPS
+    print(f"  main(): 1 epoch + resume to 2, {steps} steps at batch 2 in {seconds:.2f} s; "
+          f"launches {launches} (expected {SEG_TRAIN_LAUNCHES} per step)")
+    require(launches == {k: v * steps for k, v in SEG_TRAIN_LAUNCHES.items()}, launches)
+    curve = first["loss_curve"] + resumed["loss_curve"]
+    require(len(curve) == 2 and all(np.isfinite(curve)) and 0 < max(curve) < 10, curve)
+    require(any("resuming from epoch 1" in line for line in logs), "no resume")
+    require(os.path.isfile(os.path.join(model_dir, "002.pt")), os.listdir(model_dir))
+    summary = dict(loss_curve=curve, launches=launches, seconds=seconds)
+    summary.update(seg_step_checks(resumed["model"], root, seg_path, labels_path))
+    return {"launches": launches, "summary": summary, "trained": resumed["model"],
+            "segmenter": (seg_path, labels_path)}
+
+
+def seg_step_checks(trained, root, seg_path, labels_path):
+    """On the trained weights and one generated batch of 2: the segmenter step
+    on the kernels (bf16, remat "levels") against plain float32 autograd (the
+    segmenter in float32 too); the step with remat=False and "levels" (equal;
+    peak memory and time of each); the segmenter's share of a step."""
+    from synthsr_tpu_torch.models.unet import UNet3D
+    from synthsr_tpu_torch.train.training import (example_generators, forward_loss,
+                                                  generate_batch)
+
+    phase('one segmenter step at batch 2: kernel path (bf16, remat "levels") vs plain float32')
+    dev = torch.device("cuda")
+    model = UNet3D(in_channels=4).to(dev)
+    model.load_state_dict(trained.state_dict())
+    seg_bf16 = load_segmenter_loss(seg_path, labels_path, torch.bfloat16)
+    seg_f32 = load_segmenter_loss(seg_path, labels_path, torch.float32)
+    generator, sampler, batch = tutorial7_generator(root, dev, 2, return_labels=True)
+    gens = example_generators(torch.Generator().manual_seed(2), 2, 0, dev)
+    image, target, seg_target = generate_batch(generator, sampler, gens, batch)
+    require(image.shape == (2, 128, 128, 128, 4) and seg_target.shape == (2, 128, 128, 128, 1),
+            (image.shape, seg_target.shape))
+    params = list(model.parameters())
+
+    def run(fast, remat, seg):
+        loss, _ = forward_loss(model, image, target, "l1", 96, [2], torch.bfloat16, fast=fast,
+                               remat=remat, seg_loss_fn=seg, seg_target=seg_target)
+        return loss, torch.autograd.grad(loss, params)
+
+    loss_k, grads_k = run(True, "levels", seg_bf16)
+    loss_p, grads_p = run(False, False, seg_f32)
+    flat = lambda gs: torch.cat([g.reshape(-1) for g in gs])  # noqa: E731
+    rel_grad = float((flat(grads_k) - flat(grads_p)).norm() / flat(grads_p).norm())
+    rel_loss = abs(float(loss_k.detach()) - float(loss_p.detach())) / abs(float(loss_p.detach()))
+    leaf_rel = {n: float((a - b).norm() / b.norm())
+                for (n, p), a, b in zip(model.named_parameters(), grads_k, grads_p)
+                if p.dim() == 5 and p.shape[-1] == 3}
+    worst = max(leaf_rel, key=leaf_rel.get)
+    print(f"  loss kernel {float(loss_k.detach()):.6f} plain {float(loss_p.detach()):.6f}: "
+          f"relative {rel_loss:.3e} (bound {LOSS_BOUND:.0e}); gradient relative L2 "
+          f"{rel_grad:.3e} (bound {GRAD_BOUND:.0e}); worst 3³-conv weight gradient {worst} "
+          f"{leaf_rel[worst]:.3e} (bound {LEAF_BOUND:g})")
+    del grads_k, grads_p, loss_k, loss_p
+    torch.cuda.empty_cache()
+
+    phase('the segmenter step with remat=False and "levels": equal results, peak memory, time')
+    variants = {"False": (False, seg_bf16), "levels": ("levels", seg_bf16),
+                "levels, no segmenter": ("levels", None)}
+    steps = {name: dict(ms=[]) for name in variants}
+    for rep in range(SEG_STEP_REPS + 1):  # in turns; the first round warms up
+        for name, (remat, seg) in variants.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss, grads = run(True, remat, seg)
+            e1.record()
+            torch.cuda.synchronize()
+            if rep:
+                peak = torch.cuda.max_memory_allocated()
+                steps[name].update(peak_bytes=peak, peak_above_start_bytes=peak - start,
+                                   loss=loss.detach(), grads=grads)
+                steps[name]["ms"].append(e0.elapsed_time(e1))
+            del loss, grads
+    for name, st in steps.items():
+        st["median_ms"] = float(np.median(st["ms"]))
+        print(f"  remat {name}: forward + backward median {st['median_ms']:.3f} ms of "
+              f"{[round(v, 3) for v in st['ms']]}, peak allocated "
+              f"{st['peak_bytes'] / 2 ** 30:.3f} GiB "
+              f"({st['peak_above_start_bytes'] / 2 ** 30:.3f} above the start)")
+    a, b = steps["False"], steps["levels"]
+    bit_equal = bool(torch.equal(a["loss"], b["loss"])
+                     and all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"])))
+    remat_rel = max([abs(float(a["loss"] - b["loss"])) / abs(float(a["loss"]))]
+                    + [float((x - y).norm() / y.norm().clamp_min(1e-30))
+                       for x, y in zip(a["grads"], b["grads"])])
+    no_seg = steps["levels, no segmenter"]["median_ms"]
+    share = 1.0 - no_seg / b["median_ms"]
+    pred = torch.rand((2, 128, 128, 128, 1), device=dev).requires_grad_(True)
+    seg_ms = cuda_ms(lambda: torch.autograd.grad(seg_bf16(pred, seg_target), pred), 3)
+    print(f"  remat False vs levels: bit-equal {bit_equal}, largest relative difference "
+          f"{remat_rel:.3e} (bound {REMAT_BOUND:.0e}); the segmenter's share of the step "
+          f"{share:.1%} (median {b['median_ms']:.3f} ms with it, {no_seg:.3f} without); its "
+          f"forward + backward alone {seg_ms:.3f} ms")
+    require(np.isfinite(rel_grad) and rel_grad <= GRAD_BOUND, rel_grad)
+    require(np.isfinite(rel_loss) and rel_loss <= LOSS_BOUND, rel_loss)
+    require(all(np.isfinite(v) and v <= LEAF_BOUND for v in leaf_rel.values()), leaf_rel)
+    require(np.isfinite(remat_rel) and remat_rel <= REMAT_BOUND, remat_rel)
+    steps = {k: {m: v[m] for m in ("ms", "median_ms", "peak_bytes", "peak_above_start_bytes")}
+             for k, v in steps.items()}
+    return dict(grad_rel_l2=rel_grad, loss_rel=rel_loss, leaf_grad_rel_l2=leaf_rel,
+                remat_steps=steps, remat_bit_equal=bit_equal, remat_rel=remat_rel,
+                segmenter_share=share, segmenter_fwd_bwd_ms=seg_ms)
+
+
+def dp_phase(conv_cf, root, trained, segmenter, adv_trained, pm, ps):
+    """One train step (the segmenter step at batch 2) and one 10:1 adversarial
+    cycle inside a one-rank NCCL group, each against the same step with no
+    group: exactly equal."""
+    import torch.distributed as dist
+
+    from synthsr_tpu_torch.models.discriminator import Discriminator3D
+    from synthsr_tpu_torch.models.unet import UNet3D
+    from synthsr_tpu_torch.train import adversarial as adv
+    from synthsr_tpu_torch.train.training import make_train_step
+    from synthsr_tpu_torch.utils.finite_guard import adam_init
+
+    phase("data parallelism at world size 1 (NCCL): a train step and an adversarial cycle in "
+          "a one-rank group vs no group")
+    dev = torch.device("cuda")
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(root, "rendezvous"),
+                            world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        seg_fn = load_segmenter_loss(*segmenter, torch.bfloat16)
+        generator, sampler, batch = tutorial7_generator(root, dev, 2, return_labels=True)
+        adv_generator, adv_sampler, adv_batch = adversarial_generator(root, dev, pm, ps)
+        train, cycle = {}, {}
+        conv_cf.reset_launch_counts()
+        for name, g in (("no group", None), ("one-rank group", group)):
+            model = UNet3D(in_channels=4).to(dev)
+            model.load_state_dict(trained.state_dict())
+            step = make_train_step(model, generator, sampler, 1e-4, metrics="l1",
+                                   loss_cropping=96, residual_indices=[2], seg_loss_fn=seg_fn,
+                                   remat="levels", group=g)
+            _, loss = step(adam_init(list(model.parameters())), torch.Generator().manual_seed(3),
+                           batch)
+            train[name] = [loss, *model.state_dict().values()]
+            gen_model = UNet3D(in_channels=1).to(dev)
+            gen_model.load_state_dict(adv_trained["gen_model"].state_dict())
+            critic = Discriminator3D((128,) * 3, compute_dtype=torch.bfloat16).to(dev)
+            critic.load_state_dict(adv_trained["critic"].state_dict())
+            disc_step, gen_step = adv.make_adversarial_steps(
+                gen_model, critic, adv_generator, adv_sampler, loss_cropping=96, group=g)
+            gen = torch.Generator().manual_seed(4)
+            d_opt = adam_init(list(critic.parameters()))
+            losses = []
+            for _ in range(ADV_RATIO):
+                d_opt, d_loss = disc_step(d_opt, gen, adv_batch)
+                losses.append(d_loss)
+            _, g_loss = gen_step(adam_init(list(gen_model.parameters())), gen, adv_batch)
+            cycle[name] = [*losses, g_loss, *gen_model.state_dict().values(),
+                           *critic.state_dict().values()]
+        torch.cuda.synchronize()
+        launches = dict(conv_cf.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    equal = {k: all(torch.equal(a, b) for a, b in zip(v["no group"], v["one-rank group"]))
+             for k, v in (("train step", train), ("adversarial cycle", cycle))}
+    want = {k: 2 * (SEG_TRAIN_LAUNCHES[k] + ADV_LAUNCHES[k]) for k in NO_LAUNCHES}
+    print(f"  exactly equal to the step without a group: {equal}; train loss "
+          f"{float(train['one-rank group'][0]):.6f}, critic losses "
+          f"{[round(float(x), 6) for x in cycle['one-rank group'][:ADV_RATIO]]}, generator "
+          f"{float(cycle['one-rank group'][ADV_RATIO]):.6f}; launches {launches} (expected "
+          f"{want})")
+    require(all(equal.values()), equal)
+    require(all(np.isfinite(float(x)) for x in cycle["one-rank group"][:ADV_RATIO + 1]), cycle)
+    require(launches == want, launches)
+    return {"launches": launches, "summary": dict(equal=equal, launches=launches)}
+
+
+def adversarial_segmenter_phase(conv_cf, root, pm, ps, segmenter):
+    """``train.adversarial.training`` for one 10:1 cycle with the frozen
+    segmenter, on a folder of seeded synthetic images for its percentiles."""
+    from synthsr_tpu_torch.io.volume import save_volume
+    from synthsr_tpu_torch.train import adversarial as adv
+
+    phase("adversarial: one cycle with the frozen segmenter (bench_adversarial.py configuration)")
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(3)
+    for i in range(3):  # one image per label map, paired in sorted order
+        save_volume(phantom((160,) * 3, (1.0, 1.0, 1.0), False, rng), np.eye(4), None,
+                    os.path.join(img_dir, f"subject{i}.nii.gz"))
+    seg_path, labels_path = segmenter
+    logs = []
+    conv_cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = adv.training(os.path.join(root, "labels"), img_dir, os.path.join(root, "adv_seg"), pm,
+                       ps, os.path.join(root, "generation_labels.npy"),
+                       path_segmentation_equivalency=labels_path,
+                       segmentation_model_file=seg_path, loss_cropping=96,
+                       first_training_ratio=ADV_RATIO, training_ratio=ADV_RATIO, epochs=1,
+                       steps_per_epoch=1, seed=0, compute_dtype="bfloat16",
+                       log_fn=lambda line: (logs.append(line), print("  " + line, flush=True)),
+                       **ADV_CONFIG)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(conv_cf.LAUNCHES)
+    print(f"  training(): 1 cycle of {ADV_RATIO} critic updates + 1 generator update in "
+          f"{seconds:.2f} s; launches {launches} (expected {ADV_LAUNCHES})")
+    require(launches == ADV_LAUNCHES, launches)
+    require(all(np.isfinite(out["d_curve"] + out["g_curve"])), (out["d_curve"], out["g_curve"]))
+    return {"launches": launches,
+            "summary": dict(seconds=seconds, d_curve=out["d_curve"], g_curve=out["g_curve"])}
+
+
+def options_phase():
+    """One plain train step of the full-width net with each option of
+    OPTIONS at 64^3 (forward_train, a mean-square loss, autograd) from the
+    same weights, input and dropout masks: float32 on the card (cuDNN),
+    float32 and float64 on the CPU.  The step's loss, output and new
+    BatchNorm statistics must equal the CPU's float32 step within CPU_BOUND.
+    The gradient sums hundreds of thousands of terms of either sign at level
+    0, so float32 resolves it only to the CPU's own float32 distance from the
+    float64 step; the card's float32 gradient must be no farther from the
+    float64 one than that plus CPU_BOUND."""
+    from synthsr_tpu_torch.models.unet import UNet3D, draw_dropout_masks
+    from synthsr_tpu_torch.models.weights import random_variables, variables_to_state_dict
+
+    phase("U-Net options on the card: one plain float32 step each at 64^3 vs the CPU")
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(1, 1, 64, 64, 64)))
+    t = torch.from_numpy(rng.normal(size=(1, 1, 64, 64, 64)))
+    flat = (lambda ts: torch.cat([v.detach().reshape(-1).double().cpu() for v in ts]))  # noqa: E731
+    out = {}
+    for name, opts in OPTIONS:
+        sd = variables_to_state_dict(random_variables(opts, in_channels=1, seed=6))
+        masks = draw_dropout_masks(UNet3D(in_channels=1, **opts),
+                                   [torch.Generator().manual_seed(8)])
+        res = {}
+        for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                           ("cpu", torch.float64)):
+            model = UNet3D(in_channels=1, **opts)
+            model.load_state_dict(sd)
+            model.to(dev, dtype)
+            params = list(model.parameters())
+            t0 = time.perf_counter()
+            y, stats = model.forward_train(
+                x.to(dev, dtype), dtype,
+                masks=None if masks is None else {k: v.to(dev) for k, v in masks.items()})
+            loss = torch.mean(torch.square(y - t.to(dev, dtype)))
+            grads = torch.autograd.grad(loss, params)
+            res[(dev, dtype)] = dict(loss=flat([loss]), output=flat([y]),
+                                     batch_stats=flat([v for pair in stats.values()
+                                                       for v in pair]),
+                                     gradient=flat(grads),
+                                     seconds=time.perf_counter() - t0)
+        card, cpu, ref = (res[k] for k in (("cuda", torch.float32), ("cpu", torch.float32),
+                                          ("cpu", torch.float64)))
+        rl2 = (lambda a, b: float((a - b).norm() / b.norm()))  # noqa: E731
+        rel = {k: rl2(card[k], cpu[k]) for k in ("loss", "output", "batch_stats")}
+        grad = dict(card_vs_cpu=rl2(card["gradient"], cpu["gradient"]),
+                    card_vs_float64=rl2(card["gradient"], ref["gradient"]),
+                    cpu_vs_float64=rl2(cpu["gradient"], ref["gradient"]))
+        print(f"  {name}: loss {float(card['loss']):.6f}; the step, card vs CPU relative {rel} "
+              f"(bound {CPU_BOUND:.0e}); gradient relative L2 {grad} (bound: card vs float64 "
+              f"<= CPU vs float64 + {CPU_BOUND:.0e}); step {card['seconds']:.2f} s on the card, "
+              f"{cpu['seconds']:.2f} s on the CPU (float64 {ref['seconds']:.2f} s)")
+        require(all(np.isfinite(v) and v <= CPU_BOUND for v in rel.values()), (name, rel))
+        require(np.isfinite(grad["card_vs_float64"])
+                and grad["card_vs_float64"] <= grad["cpu_vs_float64"] + CPU_BOUND, (name, grad))
+        out[name] = dict(rel=rel, gradient=grad, card_s=card["seconds"], cpu_s=cpu["seconds"])
+    return out
+
+
+def head3_phase(conv_cf):
+    """The fast inference forward of a full-width net with a 3-label softmax
+    head (the likelihood after the last conv, in float32) at 128^3 against
+    the plain float32 forward."""
+    from synthsr_tpu_torch.models.unet import UNet3D
+    from synthsr_tpu_torch.models.unet_cf import fast_unet_forward, pack_unet
+    from synthsr_tpu_torch.models.weights import random_variables, variables_to_state_dict
+
+    phase("fast forward with a 3-label softmax head (128^3, bf16) vs the plain float32 forward")
+    dev = torch.device("cuda")
+    cfg = dict(nb_labels=3, final_pred_activation="softmax")
+    model = UNet3D(in_channels=1, **cfg)
+    model.load_state_dict(variables_to_state_dict(random_variables(cfg, in_channels=1, seed=9)))
+    model.to(dev).eval()
+    x = torch.randn((1, 1, 128, 128, 128), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    packed = pack_unet(model, torch.bfloat16)
+    conv_cf.reset_launch_counts()
+    fast = fast_unet_forward(model, x, torch.bfloat16, packed)
+    torch.cuda.synchronize()
+    launches = dict(conv_cf.LAUNCHES)
+    with torch.no_grad():
+        plain = model(x)
+    rel = float((fast - plain).norm() / plain.norm())
+    ms = cuda_ms(lambda: fast_unet_forward(model, x, torch.bfloat16, packed), 3)
+    print(f"  output {tuple(fast.shape)}, softmax sums within "
+          f"{float((fast.sum(1) - 1).abs().max()):.1e} of 1; launches {launches} (expected "
+          f"{HEAD3_LAUNCHES}); vs plain float32: relative L2 {rel:.3e} (bound {NET_BOUND:.0e}); "
+          f"forward {ms:.3f} ms")
+    require(launches == HEAD3_LAUNCHES, launches)
+    require(fast.shape == plain.shape == (1, 3, 128, 128, 128), fast.shape)
+    require(np.isfinite(rel) and rel <= NET_BOUND, rel)
+    return {"launches": launches, "summary": dict(rel_l2=rel, ms=ms)}
 
 
 def phantom(shape, zooms, ct, rng):
@@ -1277,12 +1678,23 @@ def main():
         make_train_data(root, rng)
         train = train_phase(conv_cf, root)
         adversarial = adversarial_phase(conv_cf, root)
+        seg_train = seg_train_phase(conv_cf, root)
+        pm, ps = adversarial["priors"]
+        dp = dp_phase(conv_cf, root, seg_train["trained"], seg_train["segmenter"],
+                      adversarial["trained"], pm, ps)
+        adv_seg = adversarial_segmenter_phase(conv_cf, root, pm, ps, seg_train["segmenter"])
+    options = options_phase()
+    head3 = head3_phase(conv_cf)
     path_launches = {"predict": launches, "predict_float32": predict_f32["launches"],
                      "predict_large_fov": large_fov["launches"],
                      "hyperfine": hyperfine["launches"], "train": train["launches"],
                      "train_float32": train["f32_launches"],
                      "adversarial": adversarial["launches"],
-                     "adversarial_float32": adversarial["f32_launches"]}
+                     "adversarial_float32": adversarial["f32_launches"],
+                     "train_segmenter": seg_train["launches"],
+                     "data_parallel_world_1": dp["launches"],
+                     "adversarial_segmenter": adv_seg["launches"],
+                     "fast_forward_3_label": head3["launches"]}
 
     kernels = []
     fwd_also = [f"{PALLAS}:920", f"{PALLAS}:1297", f"{PALLAS}:127"]
@@ -1309,7 +1721,11 @@ def main():
                       "peak_allocated_bytes": peak, "predict_float32": predict_f32["summary"],
                       "large_fov": large_fov["summary"],
                       "hyperfine": hyperfine["summary"], "train": train["summary"],
-                      "adversarial": adversarial["summary"]}))
+                      "adversarial": adversarial["summary"],
+                      "train_segmenter": seg_train["summary"],
+                      "data_parallel_world_1": dp["summary"],
+                      "adversarial_segmenter": adv_seg["summary"], "unet_options": options,
+                      "fast_forward_3_label": head3["summary"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

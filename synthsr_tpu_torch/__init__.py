@@ -3,7 +3,9 @@ Hopper (H100).
 
 This package covers the predict paths (the all-purpose 24-feature, 5-level
 U-Net with flip TTA, at any field of view, and the Hyperfine T1+T2 residual
-net) and supervised training.  It imports ``torch`` and never ``jax``,
+net), supervised training (every U-Net option, the frozen-segmenter Dice
+regulariser, remat, data parallelism over ``torch.distributed``) and
+WGAN-GP fine-tuning.  It imports ``torch`` and never ``jax``,
 ``flax`` or ``synthsr_tpu``: the host modules it needs from the JAX package
 are copied here under the same module names.
 
@@ -30,7 +32,9 @@ Modules, each beside its JAX counterpart of the same path unless named:
   forward), ``models/weights.py`` (flax tree <-> state dict, seeded
   ``random_variables``, weight loading);
 - ``synth/``, ``train/``, ``utils/finite_guard.py``: the generator and the
-  training loop;
+  training loops (``train/training.py``, ``train/adversarial.py``);
+- ``parallel/mesh.py``: the data-parallel process group, its all-reduces
+  and the worker launcher;
 - ``cli/predict.py``, ``cli/predict_hyperfine.py``, ``cli/train.py``: the
   CLIs, with the JAX ones' flags;
 - copies of the JAX package's host modules: ``io/nifti.py``,

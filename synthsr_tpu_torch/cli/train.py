@@ -2,7 +2,10 @@
 ``scripts/training.py:21-93``), with the same flags and the same polymorphic
 ``infer`` coercion (str -> float / bool / str) for flags that take numbers,
 paths or False.  Trains on the GPU unless ``--cpu`` is given; a missing GPU
-raises.
+raises.  ``--n_devices N`` (N > 1) starts N worker processes (spawn
+context), one rank each of a ``torch.distributed`` group (NCCL, rank r on
+``cuda:r``; gloo with ``--cpu``) that trains on its slice of the global
+``--batchsize``, and joins them.
 
     python -m synthsr_tpu_torch.cli.train labels_dir model_dir \\
         prior_means.npy prior_stds.npy generation_labels.npy [options]
@@ -12,6 +15,7 @@ from __future__ import annotations
 
 import argparse
 
+from ..parallel.mesh import spawn
 from ..utils.misc import infer
 
 
@@ -97,6 +101,13 @@ def _int_if_integral(v):
     return int(v) if isinstance(v, float) and v.is_integer() else v
 
 
+def _rank_main(rank, world_size, kwargs):
+    """One rank of ``--n_devices``: train as a rank of the initialised group."""
+    from ..train.training import training
+
+    training(n_devices=world_size, **kwargs)
+
+
 def main(argv=None, log_fn=print):
     args = vars(build_arg_parser().parse_args(argv))
     # infer() makes every number a float; channel indices and shapes are ints
@@ -108,9 +119,16 @@ def main(argv=None, log_fn=print):
         v = args[k]
         if isinstance(v, list) and len(v) == 1:
             args[k] = v[0]
+    device = "cpu" if args.pop("cpu") else None
+    n = args.pop("n_devices")
+    if n is not None and n > 1:
+        # rank 0 logs to standard output; the others log nothing
+        spawn(_rank_main, n, (dict(args, device=device),),
+              device_type="cpu" if device == "cpu" else "cuda")
+        return None
     from ..train.training import training
 
-    return training(device="cpu" if args.pop("cpu") else None, log_fn=log_fn, **args)
+    return training(device=device, n_devices=n, log_fn=log_fn, **args)
 
 
 if __name__ == "__main__":

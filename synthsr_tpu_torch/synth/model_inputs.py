@@ -1,7 +1,7 @@
 """Host-side input sampler: random label-map pick + GMM prior draws.  The
 port's own copy of ``synthsr_tpu/synth/model_inputs.py``, without its
-multi-host ``local_slice`` and lab2im ``use_specific_stats_for_channel``
-options, which no caller of the port sets.
+lab2im ``use_specific_stats_for_channel`` option, which no caller of the port
+sets.
 
 Re-implementation of ``SynthSR/model_inputs.py:25-139``: an infinite generator
 yielding (label_map, means, stds[, real_image]) batches.  Per reference
@@ -24,13 +24,20 @@ def build_model_inputs(path_label_maps, n_labels, prior_means, prior_stds,
                        prior_distributions="normal", path_images=None,
                        batchsize=1, n_channels=1, generation_classes=None,
                        rng: np.random.Generator | None = None,
-                       include_gmm_params=True):
+                       include_gmm_params=True, local_slice=None):
     """Infinite generator of model inputs (lists stacked to batch arrays).
 
     A 2n-row prior array must have one 2-row block per channel
     (model_inputs.py:105-116).  ``include_gmm_params=False`` yields only
     (labels[, image]), for the training path that draws the GMM parameters on
-    the device (``synth/sampling.make_gmm_sampler``)."""
+    the device (``synth/sampling.make_gmm_sampler``).
+
+    ``local_slice``: (rank, world size) of a data-parallel run: label-map
+    picks and GMM draws are made for the GLOBAL ``batchsize`` from the shared
+    seeded stream, but only this rank's contiguous slice of examples is
+    loaded and yielded.  Concatenating the ranks' yields in rank order
+    reproduces the one-process stream exactly (same rng consumption order),
+    so seeded runs do not depend on the world size."""
     _ = get_volume_info(path_label_maps[0])  # validates the first map
 
     if generation_classes is None:
@@ -39,18 +46,30 @@ def build_model_inputs(path_label_maps, n_labels, prior_means, prior_stds,
     n_classes = len(np.unique(generation_classes))
     rand = rng if rng is not None else np.random.default_rng()
 
+    pid, n_procs = local_slice if local_slice is not None else (0, 1)
+    if batchsize % n_procs:
+        raise ValueError(f"global batchsize {batchsize} must divide evenly "
+                         f"over {n_procs} processes")
+    local_bs = batchsize // n_procs
+    lo = pid * local_bs
+
     while True:
         indices = rand.integers(len(path_label_maps), size=batchsize)
 
         list_label_maps, list_means, list_stds, list_images = [], [], [], []
-        for idx in indices:
-            lab = load_volume(path_label_maps[idx], dtype="int", aff_ref=np.eye(4))
-            list_label_maps.append(lab[None, ..., None])
-            if path_images is not None:
-                im = load_volume(path_images[idx], dtype="float", aff_ref=np.eye(4))
-                list_images.append(im[None, ..., None])
+        for pos, idx in enumerate(indices):
+            is_local = lo <= pos < lo + local_bs
+            if is_local:
+                lab = load_volume(path_label_maps[idx], dtype="int", aff_ref=np.eye(4))
+                list_label_maps.append(lab[None, ..., None])
+                if path_images is not None:
+                    im = load_volume(path_images[idx], dtype="float", aff_ref=np.eye(4))
+                    list_images.append(im[None, ..., None])
             if not include_gmm_params:
                 continue
+
+            # GMM draws consume the rng for EVERY global example (stream
+            # parity across process counts); only local ones are kept
 
             means = np.empty((1, n_labels, 0))
             stds = np.empty((1, n_labels, 0))
@@ -76,8 +95,9 @@ def build_model_inputs(path_label_maps, n_labels, prior_means, prior_stds,
                                        axis=-1)
                 stds = np.concatenate([stds, cls_stds[generation_classes][None, :, None]],
                                       axis=-1)
-            list_means.append(means)
-            list_stds.append(stds)
+            if is_local:
+                list_means.append(means)
+                list_stds.append(stds)
 
         inputs = [np.concatenate(list_label_maps, 0).astype(np.int32)]
         if include_gmm_params:

@@ -24,11 +24,25 @@ the plain float32 networks instead (the critic built in float32 whatever
 interpolation weights are drawn before the differentiated part
 (:func:`critic_loss`, :func:`generator_loss` take them as values).
 
+With a frozen segmenter (``segmentation_model_file``, ``.h5`` or ``.pt``,
+and ``path_segmentation_equivalency``) the generator loss takes
+``relative_weight_segmentation`` from the L1 weight and adds that weight
+times the Dice of the segmenter's output on the clip-normalised fake
+(``metrics.build_seg_loss_fn``; the clip bounds are the 2nd and 98th
+percentiles of the first real image, so it needs ``images_dir``).  A
+generator outside the fast gate (dropout, residual levels, ...) runs the
+plain ``UNet3D`` forwards in the compute dtype, dropout on masks drawn
+before the forward; the critic keeps its kernel paths.  ``n_devices`` = N >
+1 runs as one rank of an initialised ``torch.distributed`` group of N ranks
+(``parallel/mesh.py``): each rank feeds its slice of the global batch, the
+generator's BatchNorm statistics span the ranks, both updates average their
+gradients and losses over them, and rank 0 alone logs and writes files.
+
 Differences from the JAX function: ``lax.scan`` and ``cycle_step`` are a
 plain loop (``scan_inner`` is accepted and ignored); checkpoints are ``.pt``
-files, not orbax directories; the frozen-segmenter Dice term
-(``segmentation_model_file``) and ``n_devices`` > 1 raise
-``NotImplementedError``; the penalty's gradient norm is summed in float32.
+files, not orbax directories; every random draw of an update comes from
+per-example generators (``training.example_generators``); the penalty's
+gradient norm is summed in float32.
 """
 
 from __future__ import annotations
@@ -45,12 +59,13 @@ from ..io.labels import get_list_labels
 from ..models.discriminator import Discriminator3D, critic_forward, init_critic
 from ..models.discriminator_cf import fast_disc_apply, fast_disc_input_grad
 from ..models.h5_import import export_keras_unet_weights, load_keras_unet_weights
-from ..models.unet import UNet3D
+from ..models.unet import UNet3D, draw_dropout_masks
 from ..models.unet_cf import fast_unet_forward
-from ..models.unet_cf_train import fast_train_forward
+from ..models.unet_cf_train import can_fast_train, fast_train_forward
 from ..models.weights import (disc_state_dict_to_variables, state_dict_to_variables,
                               variables_to_state_dict)
 from ..ops.losses import l1_loss
+from ..parallel.mesh import all_reduce_mean_list, data_group, local_slice, rank_and_size
 from ..synth.brain_generator import BrainGenerator
 from ..synth.labels_to_image import build_generator
 from ..synth.model_inputs import build_model_inputs
@@ -59,7 +74,8 @@ from ..utils.finite_guard import FiniteGuard, adam_init, gated_adam_step
 from ..utils.misc import get_mapping_lut, load_array_if_path, reformat_to_list
 from ..utils.prefetch import PrefetchIterator
 from .metrics import assemble_prediction, center_crop, doubled_residual_indices
-from .training import bn_layers, generate_batch, init_unet, write_bn_stats
+from .training import (bn_layers, example_generators, frozen_segmenter, generate_batch,
+                       init_unet, write_bn_stats)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -126,15 +142,25 @@ def critic_terms(critic: Discriminator3D, params: dict, target, fake, w, mask=No
 
 def generator_loss(gen_model: UNet3D, critic: Discriminator3D, critic_params: dict, image,
                    target, mask=None, *, residual_indices=None, loss_cropping=None,
-                   relative_weight_discriminator=0.01, compute_dtype=torch.bfloat16, fast=True):
+                   relative_weight_discriminator=0.01, compute_dtype=torch.bfloat16, fast=True,
+                   masks=None, group=None, seg_loss_fn=None, seg_target=None,
+                   relative_weight_segmentation=0.25):
     """The generator update's loss on a pre-drawn pair (image, target (B, X,
     Y, Z, C), mask NCDHW): ``w_D·mean(-D(fake)) + (1 - w_D)·L1`` on the
-    cropped volumes, and the train forward's new BatchNorm statistics.
-    Differentiable in the generator's parameters; ``critic_params`` are
-    taken as they are (pass them detached)."""
+    cropped volumes, and the train forward's new BatchNorm statistics.  With
+    ``seg_loss_fn`` the L1 weight drops by ``w_seg`` and ``w_seg`` times the
+    segmenter's Dice of the fake against ``seg_target`` joins (JAX
+    :373-387).  Differentiable in the generator's parameters;
+    ``critic_params`` are taken as they are (pass them detached).  A
+    generator outside the fast gate runs ``forward_train`` in
+    ``compute_dtype`` with the dropout ``masks``; ``group`` is the
+    data-parallel group of its BatchNorm statistics."""
     x = _cf(image)
-    out, new_stats = fast_train_forward(gen_model, x, compute_dtype) if fast \
-        else gen_model.forward_train(x)
+    if fast and can_fast_train(gen_model):
+        out, new_stats = fast_train_forward(gen_model, x, compute_dtype, group)
+    else:
+        out, new_stats = gen_model.forward_train(x, compute_dtype if fast else torch.float32,
+                                                 masks, group)
     fake, _ = assemble_prediction(out.permute(0, 2, 3, 4, 1), image,
                                   work_with_residual_channel=residual_indices)
     l1 = l1_loss(center_crop(fake, loss_cropping), center_crop(target, loss_cropping))
@@ -143,21 +169,27 @@ def generator_loss(gen_model: UNet3D, critic: Discriminator3D, critic_params: di
     else:
         d = critic_forward(critic_params, _cf(fake), mask, critic.n_levels, critic.compute_dtype)
     w = relative_weight_discriminator
-    return w * torch.mean(-d) + (1.0 - w) * l1, new_stats
+    l1_weight = 1.0 - w
+    loss = w * torch.mean(-d)
+    if seg_loss_fn is not None:
+        l1_weight -= relative_weight_segmentation
+        loss = loss + relative_weight_segmentation * seg_loss_fn(fake, seg_target)
+    return loss + l1_weight * l1, new_stats
 
 
 def fake_volumes(gen_model: UNet3D, image, residual_indices=None, compute_dtype=torch.bfloat16,
                  fast=True):
     """The generator's inference output for the critic update, (B, X, Y, Z,
     C) float32, with no gradient: the fast forward per example (batch-1
-    kernels), or the plain float32 forward."""
+    kernels), the plain forward in ``compute_dtype`` for a generator outside
+    the fast gate, or the plain float32 forward when not ``fast``."""
     x = _cf(image)
     with torch.no_grad():
-        if fast:
+        if fast and can_fast_train(gen_model):
             out = torch.cat([fast_unet_forward(gen_model, x[i:i + 1], compute_dtype)
                              for i in range(x.shape[0])])
         else:
-            out = gen_model(x)
+            out = gen_model(x, compute_dtype if fast else torch.float32)
     pred, _ = assemble_prediction(out.permute(0, 2, 3, 4, 1), image,
                                   work_with_residual_channel=residual_indices)
     return pred
@@ -168,7 +200,8 @@ def make_adversarial_steps(gen_model: UNet3D, critic: Discriminator3D, generator
                            residual_indices=None, loss_cropping=None,
                            relative_weight_discriminator=0.01, gradient_penalty_weight=10.0,
                            mask_lut=None, use_real_image=False, compute_dtype=torch.bfloat16,
-                           fast=True):
+                           fast=True, seg_loss_fn=None, relative_weight_segmentation=0.25,
+                           group=None):
     """The two WGAN-GP updates (reference :365-436), each writing its
     network's parameters (and the generator's BatchNorm statistics) in place
     through the non-finite gate:
@@ -176,42 +209,53 @@ def make_adversarial_steps(gen_model: UNet3D, critic: Discriminator3D, generator
       disc_step(opt_state, gen, batch) -> (opt_state, loss)
       gen_step(opt_state, gen, batch) -> (opt_state, loss)
 
-    ``gen``: the ``torch.Generator`` of the draws; ``batch``: (labels (B, X,
-    Y, Z, 1)[, real images]) on the device.  ``generator`` returns the
-    deformed labels too when ``mask_lut`` (a LUT tensor from generation
-    labels to 0/1) is given: the anatomy mask is ``mask_lut[labels]``."""
+    ``gen``: the step generator (CPU) from which each update derives its
+    per-example generators (``training.example_generators``); ``batch``:
+    (labels (B, X, Y, Z, 1)[, real images]) on the device.  ``generator``
+    returns the deformed labels too when ``mask_lut`` (a LUT tensor from
+    generation labels to 0/1) or ``seg_loss_fn`` is given: the anatomy mask
+    is ``mask_lut[labels]``, the segmenter's target the labels themselves.
+    ``group``: the data-parallel process group (``batch`` is this rank's
+    slice); both updates average their gradients and losses over it."""
     gen_params = list(gen_model.parameters())
     critic_params = list(critic.parameters())
     bn_names = bn_layers(gen_model)
+    rank, _ = rank_and_size(group)
 
     def generate(gen, batch):
-        out = generate_batch(generator, gmm_sampler, gen, batch, use_real_image)
+        n = batch[0].shape[0]
+        gens = example_generators(gen, n, rank * n, batch[0].device)
+        out = generate_batch(generator, gmm_sampler, gens, batch, use_real_image)
         mask = None
         if mask_lut is not None:
             mask = _cf(mask_lut[out[2][..., 0].long()][..., None].to(torch.float32))
-        return out[0], out[1], mask
+        return out[0], out[1], out[2] if len(out) > 2 else None, mask, gens
 
     def disc_step(opt_state, gen, batch):
-        image, target, mask = generate(gen, batch)
+        image, target, _, mask, gens = generate(gen, batch)
         fake = fake_volumes(gen_model, image, residual_indices, compute_dtype, fast)
-        w = torch.rand((target.shape[0], 1, 1, 1, 1), generator=gen, device=target.device)
+        w = torch.cat([torch.rand((1, 1, 1, 1, 1), generator=g, device=g.device) for g in gens])
         loss = critic_loss(critic, dict(critic.named_parameters()), _cf(target), _cf(fake), w,
                            mask, gradient_penalty_weight, fast)
         grads = torch.autograd.grad(loss, critic_params)
+        *grads, loss = all_reduce_mean_list([*grads, loss.detach()], group)
         with torch.no_grad():
             opt_state = gated_adam_step(critic_params, grads, opt_state, torch.isfinite(loss),
                                         lr_discriminator, lr_decay)
         return opt_state, loss.detach()
 
     def gen_step(opt_state, gen, batch):
-        image, target, mask = generate(gen, batch)
+        image, target, labels, mask, gens = generate(gen, batch)
         frozen = {n: p.detach() for n, p in critic.named_parameters()}
         loss, new_stats = generator_loss(
             gen_model, critic, frozen, image, target, mask, residual_indices=residual_indices,
             loss_cropping=loss_cropping,
             relative_weight_discriminator=relative_weight_discriminator,
-            compute_dtype=compute_dtype, fast=fast)
+            compute_dtype=compute_dtype, fast=fast, masks=draw_dropout_masks(gen_model, gens),
+            group=group, seg_loss_fn=seg_loss_fn, seg_target=labels,
+            relative_weight_segmentation=relative_weight_segmentation)
         grads = torch.autograd.grad(loss, gen_params)
+        *grads, loss = all_reduce_mean_list([*grads, loss.detach()], group)
         with torch.no_grad():
             finite = torch.isfinite(loss)
             opt_state = gated_adam_step(gen_params, grads, opt_state, finite, lr_generator,
@@ -241,17 +285,25 @@ def training(labels_dir, images_dir, model_dir, prior_means, prior_stds,
              n_devices=None, fast_forward="auto", scan_inner="auto", device=None, log_fn=print):
     """WGAN-GP fine-tuning (module docstring), with the JAX function's
     parameters.  ``device``: "cuda" (the default; raises without a card) or
-    "cpu".  ``fast_forward``: "off" runs the plain float32 networks, any
-    other of the JAX values the kernels' paths.  Returns the networks and
-    loss curves."""
-    del scan_inner, relative_weight_segmentation, path_segmentation_equivalency  # unported
+    "cpu"; a data-parallel rank trains on ``cuda:rank`` (the current
+    device).  ``n_devices``: the size of the initialised ``torch.distributed``
+    group this process is a rank of; None or 1 for one process.
+    ``fast_forward``: "off" runs the plain float32 networks, any other of the
+    JAX values the kernels' paths.  Returns the networks and loss curves."""
+    del scan_inner  # the plain loop needs no scan
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to train on the CPU")
-    if segmentation_model_file is not None:
-        raise NotImplementedError("the frozen-segmenter Dice regulariser is not ported yet")
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError("n_devices > 1 (data parallelism) is not ported yet")
+    if segmentation_model_file is not None and images_dir is None:
+        # JAX reads the first real image unconditionally (:596-601)
+        raise ValueError("the frozen segmenter's normalisation takes the percentiles of the "
+                         "first real image: pass images_dir")
+    group = data_group(n_devices)
+    rank, world = rank_and_size(group)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if rank != 0:
+        log_fn = (lambda *a, **k: None)  # noqa: E731 (rank 0 alone logs)
     # the JAX values, for the same signature: "auto", "on" and "interpret"
     # (a TPU notion) all mean the kernels' paths here
     if fast_forward not in ("auto", "on", "interpret", "off"):
@@ -264,9 +316,6 @@ def training(labels_dir, images_dir, model_dir, prior_means, prior_stds,
     if output_channel is not None:
         output_channel = list(reformat_to_list(output_channel))
         n_output_channels = len(output_channel)
-    if fast and n_output_channels != 1:
-        raise NotImplementedError("the fast generator forward folds a 1-label head; pass "
-                                  "fast_forward='off' for several output channels")
     if work_with_residual_channel is not None:
         work_with_residual_channel = reformat_to_list(work_with_residual_channel)
         if output_channel is not None and \
@@ -298,7 +347,8 @@ def training(labels_dir, images_dir, model_dir, prior_means, prior_stds,
         mask_lut = torch.as_tensor(get_mapping_lut(generation_labels,
                                                    load_array_if_path(labels_to_mask)),
                                    device=dev)
-    generator = build_generator(bg.cfg, return_labels=mask_lut is not None)
+    generator = build_generator(
+        bg.cfg, return_labels=mask_lut is not None or segmentation_model_file is not None)
 
     # ----- networks (reference :288-345) -----
     dt = _DTYPES[str(compute_dtype)]
@@ -318,6 +368,15 @@ def training(labels_dir, images_dir, model_dir, prior_means, prior_stds,
     critic = init_critic(Discriminator3D(out_shape, in_channels=n_output_channels,
                                          compute_dtype=dt if fast else torch.float32)).to(dev)
 
+    seg_loss_fn = None
+    if segmentation_model_file is not None:  # the frozen segmenter (JAX :581-601)
+        seg_loss_fn = frozen_segmenter(
+            segmentation_model_file, path_segmentation_equivalency,
+            path_segmentation_equivalency, generation_labels, images_dir, loss_cropping, False,
+            dev, dict(nb_features=unet_feat_count, nb_levels=n_levels, conv_size=conv_size,
+                      feat_mult=feat_multiplier, nb_conv_per_level=nb_conv_per_level,
+                      activation=activation), dt)
+
     gmm_sampler = make_gmm_sampler(
         n_labels=len(generation_labels), prior_means=bg.prior_means, prior_stds=bg.prior_stds,
         prior_distributions=prior_distributions, n_channels=bg.n_channels,
@@ -327,10 +386,12 @@ def training(labels_dir, images_dir, model_dir, prior_means, prior_stds,
         lr_discriminator=lr_discriminator, lr_decay=lr_decay, residual_indices=residual_indices,
         loss_cropping=loss_cropping, relative_weight_discriminator=relative_weight_discriminator,
         gradient_penalty_weight=gradient_penalty_weight, mask_lut=mask_lut,
-        use_real_image=output_channel is None, compute_dtype=dt, fast=fast)
+        use_real_image=output_channel is None, compute_dtype=dt, fast=fast,
+        seg_loss_fn=seg_loss_fn, relative_weight_segmentation=relative_weight_segmentation,
+        group=group)
     gen_opt = adam_init(list(gen_model.parameters()))
     disc_opt = adam_init(list(critic.parameters()))
-    gen = torch.Generator(device=dev).manual_seed(seed if seed is not None else 0)
+    gen = torch.Generator().manual_seed(seed if seed is not None else 0)
 
     log_dir = os.path.join(model_dir, "logs")
     os.makedirs(log_dir, exist_ok=True)
@@ -352,7 +413,7 @@ def training(labels_dir, images_dir, model_dir, prior_means, prior_stds,
         path_label_maps=bg.labels_paths, n_labels=len(generation_labels),
         prior_means=bg.prior_means, prior_stds=bg.prior_stds, path_images=bg.images_paths,
         batchsize=batchsize, rng=bg._rng if seed is not None else None,
-        include_gmm_params=False), buffer_size=4)
+        include_gmm_params=False, local_slice=local_slice(group)), buffer_size=4)
 
     def next_batch():
         return [torch.as_tensor(np.asarray(a)).to(dev, non_blocking=True) for a in next(inputs)]
@@ -386,6 +447,8 @@ def training(labels_dir, images_dir, model_dir, prior_means, prior_stds,
         g_curve.append(float(sum_g) / steps_per_epoch)
         log_fn(f"Epoch {epoch + 1:0{le}d}/{epochs}  D {d_curve[-1]:.5f}  G {g_curve[-1]:.5f}  "
                f"({time.time() - t0:.1f}s, {n_d} critic updates)")
+        if rank != 0:
+            continue
         np.save(os.path.join(log_dir, "discriminator_loss.npy"), np.array(d_curve))
         np.save(os.path.join(log_dir, "generator_loss.npy"), np.array(g_curve))
         if export_h5:

@@ -7,17 +7,32 @@ fast train forward and backward through the hand-written kernels
 (``models/unet_cf_train.py``), and Adam with the Keras decay updates the
 parameters through an on-device non-finite gate (``utils/finite_guard.py``).
 Batch 1 runs the generator directly; larger batches loop over the examples
-(the JAX package's ``vmap_examples`` is a JAX device).
+(the JAX package's ``vmap_examples`` is a JAX device), each drawing from its
+own generator derived from the step generator and its global index.
+
+- Models outside the fast gate (dropout, residual levels, dilation, other
+  conv or pool sizes, ``layer_nb_feats``, no BatchNorm) train on the plain
+  ``UNet3D.forward_train`` in the compute dtype, dropout on masks drawn
+  before the forward.
+- The frozen-segmenter Dice regulariser (``segmentation_model_file``, a
+  Keras ``.h5`` where h5py is installed or a ``.pt`` state dict) adds
+  ``relative_weight_segmentation`` times the Dice of a softmax ``UNet3D``'s
+  segmentation of the prediction (``metrics.build_seg_loss_fn``); its convs
+  are plain torch ops (cuDNN on a card), as they are XLA convs in JAX.
+- ``remat``: False, True or "levels" (``fast_train_forward``); by default
+  "levels" when each rank's batch has 2 examples or more, as in JAX.
+- ``n_devices`` = N > 1 runs as one rank of an initialised
+  ``torch.distributed`` group of N ranks (``parallel/mesh.py``; the train
+  CLI's ``--n_devices`` starts them): each rank feeds its slice of the global
+  ``batchsize``, BatchNorm's statistics span the ranks, the gradients and the
+  loss are averaged before Adam, and rank 0 alone logs and writes
+  checkpoints.
 
 Checkpoints are per-epoch ``{epoch:03d}.pt`` files holding the parameters and
-BatchNorm statistics (the model's state dict), the Adam state, the
-generator's RNG state and the epoch; a run resumes from the newest one.  A
+BatchNorm statistics (the model's state dict), the Adam state, the step
+generator's state and the epoch; a run resumes from the newest one.  A
 Keras ``.h5`` is exported beside each where h5py is installed; without it the
 run logs once that the export was skipped.
-
-Not ported yet (they raise ``NotImplementedError``): dropout, residual levels
-and dilation (``UNet3D``), ``remat``, the frozen-segmenter Dice regulariser
-and ``n_devices`` > 1.
 """
 
 from __future__ import annotations
@@ -34,16 +49,18 @@ import torch
 from ..io.labels import get_list_labels
 from ..models.h5_import import export_keras_unet_weights, load_keras_unet_weights
 from ..synth.model_inputs import build_model_inputs
-from ..utils.misc import get_padding_margin, reformat_to_list
-from ..models.unet import UNet3D
-from ..models.unet_cf_train import fast_train_forward
-from ..models.weights import state_dict_to_variables, variables_to_state_dict
+from ..utils.misc import get_padding_margin, load_array_if_path, reformat_to_list
+from ..models.unet import UNet3D, draw_dropout_masks
+from ..models.unet_cf_train import can_fast_train, fast_train_forward
+from ..models.weights import load_unet_weights, state_dict_to_variables, variables_to_state_dict
+from ..parallel.mesh import all_reduce_mean_list, data_group, local_slice, rank_and_size
 from ..synth.brain_generator import BrainGenerator
 from ..synth.labels_to_image import build_generator
 from ..synth.sampling import make_gmm_sampler
 from ..utils.finite_guard import FiniteGuard, adam_init, gated_adam_step, guard_updates
 from ..utils.prefetch import PrefetchIterator
-from .metrics import doubled_residual_indices, regression_loss
+from .metrics import (assemble_prediction, build_seg_loss_fn, doubled_residual_indices,
+                      regression_loss)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -66,30 +83,59 @@ def init_unet(model: UNet3D, seed: int = 0) -> UNet3D:
     return model
 
 
-def generate_batch(generator, gmm_sampler, gen, batch, use_real_image=False):
+def example_generators(gen: torch.Generator, n_local: int, first_index: int = 0,
+                       device=None) -> list:
+    """The per-example generators of one step: ONE draw of the step
+    generator ``gen`` (a host integer; keep ``gen`` on the CPU, or the draw
+    waits for the card), then one generator on ``device`` per example seeded
+    by that draw plus the example's GLOBAL index ``first_index + i``.  A
+    data-parallel rank passes ``first_index = rank · n_local``, so every
+    example sees the same stream whatever the world size (the JAX step splits
+    keys for the global batch and slices them per device, :209-218)."""
+    base = int(torch.randint(0, 2 ** 62, (1,), generator=gen, device=gen.device))
+    dev = torch.device("cpu" if device is None else device)
+    return [torch.Generator(device=dev).manual_seed(base + first_index + i)
+            for i in range(n_local)]
+
+
+def generate_batch(generator, gmm_sampler, gens, batch, use_real_image=False):
     """The step's synthetic pairs: (image (B, X, Y, Z, C), target) float32,
     and the deformed label maps (B, X, Y, Z, 1) when the generator returns
     them.  ``batch``: (labels (B, X, Y, Z, 1)[, real images]) on the device;
-    the GMM parameters of every example are drawn first, as the JAX step
-    does."""
+    ``gens``: one generator per example (:func:`example_generators`), from
+    which its GMM parameters are drawn first and then its generation."""
     labels = batch[0]
-    params = [gmm_sampler(gen) for _ in range(labels.shape[0])]
-    outs = [generator(gen, labels[i], *params[i], *((batch[1][i],) if use_real_image else ()))
-            for i in range(labels.shape[0])]
+    outs = []
+    for i, g in enumerate(gens):
+        params = gmm_sampler(g)
+        outs.append(generator(g, labels[i], *params,
+                              *((batch[1][i],) if use_real_image else ())))
     return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
 def forward_loss(model, image, target, metrics="l1", loss_cropping=16, residual_indices=None,
-                 compute_dtype=torch.bfloat16, fast=True):
-    """Network forward on (B, X, Y, Z, C) and the regression loss:
-    (loss, {bn name: new running stats}).  ``fast=False`` runs the plain
-    float32 ``UNet3D.forward_train``, the reference of the fast path."""
+                 compute_dtype=torch.bfloat16, fast=True, masks=None, group=None, remat=False,
+                 seg_loss_fn=None, seg_target=None, seg_rel_weight=0.25):
+    """Network forward on (B, X, Y, Z, C), the regression loss and, with
+    ``seg_loss_fn``, ``seg_rel_weight`` times the frozen segmenter's Dice on
+    the assembled prediction against ``seg_target`` (reference :372-409):
+    (loss, {bn name: new running stats}).  The fast train forward runs when
+    the model passes ``can_fast_train``, else the plain ``forward_train`` in
+    ``compute_dtype`` with the dropout ``masks``; ``fast=False`` runs the
+    plain float32 ``forward_train``, the reference of the fast path.
+    ``group``: the data-parallel group of BatchNorm's statistics."""
     x = image.permute(0, 4, 1, 2, 3)
-    out, new_stats = fast_train_forward(model, x, compute_dtype) if fast \
-        else model.forward_train(x)
-    loss = regression_loss(out.permute(0, 2, 3, 4, 1), image, target, metrics=metrics,
-                           loss_cropping=loss_cropping,
+    if fast and can_fast_train(model):
+        out, new_stats = fast_train_forward(model, x, compute_dtype, group, remat)
+    else:
+        out, new_stats = model.forward_train(x, compute_dtype if fast else torch.float32,
+                                             masks, group, remat)
+    out = out.permute(0, 2, 3, 4, 1)
+    loss = regression_loss(out, image, target, metrics=metrics, loss_cropping=loss_cropping,
                            work_with_residual_channel=residual_indices)
+    if seg_loss_fn is not None:
+        pred, _ = assemble_prediction(out, image, metrics, residual_indices)
+        loss = loss + seg_rel_weight * seg_loss_fn(pred, seg_target)
     return loss, new_stats
 
 
@@ -110,20 +156,41 @@ def write_bn_stats(model, bn_names, new_stats, finite: torch.Tensor):
 
 def make_train_step(model, generator, gmm_sampler, lr, lr_decay=0.0, metrics="l1",
                     loss_cropping=16, residual_indices=None, use_real_image=False,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, seg_loss_fn=None, seg_rel_weight=0.25,
+                    remat=False, group=None):
     """``step(opt_state, gen, batch) -> (opt_state, loss)``: generate, the fast
-    train forward (kernels on a card, their plain versions on the CPU),
-    backward, Adam.  The model's parameters and BatchNorm buffers are written
-    in place, through the non-finite gate: a step whose loss is not finite
-    changes neither them nor the Adam state."""
+    train forward (kernels on a card, their plain versions on the CPU; the
+    plain ``forward_train`` for models outside the fast gate), backward,
+    Adam.  The model's parameters and BatchNorm buffers are written in place,
+    through the non-finite gate: a step whose loss is not finite changes
+    neither them nor the Adam state.
+
+    ``gen``: the step generator (CPU; :func:`example_generators`).
+    ``generator`` must return the deformed labels too when ``seg_loss_fn``
+    (:func:`~.metrics.build_seg_loss_fn`) is given.  ``remat``: False, True
+    or "levels" (``fast_train_forward``).  ``group``: the data-parallel
+    process group: ``batch`` is this rank's slice of the global batch,
+    BatchNorm's statistics span the ranks, and the gradients and the loss
+    are averaged over them (one flat all-reduce) before the gated Adam.
+    The step takes its gradients with ``torch.autograd.grad``, which would
+    not fire ``DistributedDataParallel``'s reducer hooks: the average is
+    explicit."""
     params = list(model.parameters())
     bn_names = bn_layers(model)
+    rank, _ = rank_and_size(group)
 
     def step(opt_state, gen, batch):
-        image, target = generate_batch(generator, gmm_sampler, gen, batch, use_real_image)
-        loss, new_stats = forward_loss(model, image, target, metrics, loss_cropping,
-                                       residual_indices, compute_dtype)
+        n = batch[0].shape[0]
+        gens = example_generators(gen, n, rank * n, batch[0].device)
+        outs = generate_batch(generator, gmm_sampler, gens, batch, use_real_image)
+        masks = draw_dropout_masks(model, gens)
+        loss, new_stats = forward_loss(
+            model, outs[0], outs[1], metrics, loss_cropping, residual_indices, compute_dtype,
+            masks=masks, group=group, remat=remat, seg_loss_fn=seg_loss_fn,
+            seg_target=outs[2] if seg_loss_fn is not None else None,
+            seg_rel_weight=seg_rel_weight)
         grads = torch.autograd.grad(loss, params)
+        *grads, loss = all_reduce_mean_list([*grads, loss.detach()], group)
         with torch.no_grad():
             finite = torch.isfinite(loss)
             opt_state = gated_adam_step(params, grads, opt_state, finite, lr, lr_decay)
@@ -173,6 +240,30 @@ def restore_checkpoint(path, model, gen):
     return adam, int(ck["epoch"])
 
 
+def frozen_segmenter(model_file, label_list, label_equivalency, generation_labels, images_dir,
+                      loss_cropping, fs_header, dev, cfg, compute_dtype):
+    """The Dice regulariser's loss (reference :372-409, JAX :487-516 and
+    adversarial.py:581-601): a softmax ``UNet3D`` of architecture ``cfg`` with
+    one output per entry of ``label_list`` (an array or ``.npy`` path), its
+    weights from ``model_file`` (``.h5`` or ``.pt``), clip bounds from the
+    2nd and 98th percentiles of the first real image when ``images_dir`` is
+    given (no normalisation otherwise)."""
+    from ..io.volume import load_volume
+    from ..utils.misc import list_images_in_folder
+
+    seg_labels = np.asarray(reformat_to_list(label_list, load_as_numpy=True))
+    seg_model = UNet3D(in_channels=1, nb_labels=len(seg_labels),
+                       final_pred_activation="softmax", **cfg)
+    load_unet_weights(seg_model, model_file)
+    seg_m = seg_M = None
+    if images_dir is not None:
+        im0 = load_volume(list_images_in_folder(images_dir)[0]).flatten()
+        seg_m, seg_M = float(np.percentile(im0, 2)), float(np.percentile(im0, 98))
+    return build_seg_loss_fn(seg_model.to(dev), generation_labels,
+                             load_array_if_path(label_equivalency), loss_cropping, m=seg_m,
+                             M=seg_M, fs_header=fs_header, compute_dtype=compute_dtype)
+
+
 # ---------------------------------------------------------------------------
 # the training orchestration (reference training():38-453 surface)
 # ---------------------------------------------------------------------------
@@ -195,17 +286,26 @@ def training(labels_dir, model_dir, prior_means, prior_stds, path_generation_lab
              n_devices=None, seed=None, compute_dtype="bfloat16", remat=None, device=None,
              log_fn=print):
     """Train the SR / synthesis U-Net on synthetic pairs made on the device.
-    ``device``: "cuda" (the default; raises without a card) or "cpu"."""
+    ``device``: "cuda" (the default; raises without a card) or "cpu"; a
+    data-parallel rank trains on ``cuda:rank`` (the current device).
+    ``n_devices``: the size of the initialised ``torch.distributed`` group
+    this process is a rank of (module docstring); None or 1 for one
+    process."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' (--cpu) to train "
                            "on the CPU")
-    if segmentation_model_file is not None:
-        raise NotImplementedError("the frozen-segmenter Dice regulariser is not ported yet")
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError("n_devices > 1 (data parallelism) is not ported yet")
-    if remat:
-        raise NotImplementedError("remat is not ported yet")
+    group = data_group(n_devices)
+    rank, world = rank_and_size(group)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if rank != 0:
+        log_fn = (lambda *a, **k: None)  # noqa: E731 (rank 0 alone logs)
+    if batchsize % world:
+        raise ValueError(f"batchsize {batchsize} must divide evenly over {world} ranks")
+    if remat is None:
+        # JAX's default (:529-532): per-level remat once a rank holds 2 examples
+        remat = "levels" if batchsize // world >= 2 else False
 
     # ----- channel validation (reference :245-271) -----
     input_channels_l = [bool(c) for c in reformat_to_list(input_channels)]
@@ -256,7 +356,7 @@ def training(labels_dir, model_dir, prior_means, prior_stds, path_generation_lab
         blur_range=blur_range, build_reliability_maps=build_reliability_maps,
         bias_field_std=bias_field_std, bias_shape_factor=bias_shape_factor, seed=seed,
         device=dev)
-    generator = build_generator(bg.cfg)
+    generator = build_generator(bg.cfg, return_labels=segmentation_model_file is not None)
     use_real = output_channel is None
 
     # ----- network (reference :321-345) -----
@@ -272,6 +372,14 @@ def training(labels_dir, model_dir, prior_means, prior_stds, path_generation_lab
         model.load_state_dict(variables_to_state_dict(
             load_keras_unet_weights(checkpoint, template, skip_layers=skip)))
     model.to(dev)
+    seg_loss_fn = None
+    if segmentation_model_file is not None:
+        seg_loss_fn = frozen_segmenter(
+            segmentation_model_file, segmentation_label_list, segmentation_label_equivalency,
+            generation_labels, images_dir, loss_cropping, fs_header_segnet, dev,
+            dict(nb_features=unet_feat_count, nb_levels=n_levels, conv_size=conv_size,
+                 feat_mult=feat_multiplier, nb_conv_per_level=nb_conv_per_level,
+                 activation=activation), _DTYPES[str(compute_dtype)])
 
     gmm_sampler = make_gmm_sampler(
         n_labels=len(generation_labels), prior_means=bg.prior_means, prior_stds=bg.prior_stds,
@@ -280,9 +388,11 @@ def training(labels_dir, model_dir, prior_means, prior_stds, path_generation_lab
     step = make_train_step(model, generator, gmm_sampler, lr, lr_decay,
                            metrics=regression_metric, loss_cropping=loss_cropping,
                            residual_indices=residual_indices, use_real_image=use_real,
-                           compute_dtype=_DTYPES[str(compute_dtype)])
+                           compute_dtype=_DTYPES[str(compute_dtype)], seg_loss_fn=seg_loss_fn,
+                           seg_rel_weight=relative_weight_segmentation, remat=remat,
+                           group=group)
     opt_state = adam_init(list(model.parameters()))
-    gen = torch.Generator(device=dev).manual_seed(seed if seed is not None else 0)
+    gen = torch.Generator().manual_seed(seed if seed is not None else 0)
 
     # ----- resume (reference :434-439: the epoch is in the file name) -----
     init_epoch = 0
@@ -302,12 +412,14 @@ def training(labels_dir, model_dir, prior_means, prior_stds, path_generation_lab
         path_label_maps=bg.labels_paths, n_labels=len(generation_labels),
         prior_means=bg.prior_means, prior_stds=bg.prior_stds, path_images=bg.images_paths,
         batchsize=batchsize, rng=bg._rng if seed is not None else None,
-        include_gmm_params=False), buffer_size=4)
+        include_gmm_params=False, local_slice=local_slice(group)), buffer_size=4)
     log_path = os.path.join(model_dir, "logs")
     os.makedirs(log_path, exist_ok=True)
     export_h5 = importlib.util.find_spec("h5py") is not None
     if not export_h5:
         log_fn("h5py is not installed: the per-epoch .h5 export is skipped")
+    if world > 1:
+        log_fn(f"data parallel over {world} ranks, {batchsize // world} examples each")
     loss_curve = []
     guard = FiniteGuard(lag=2)  # the step itself gates its writes on isfinite(loss)
     for epoch in range(init_epoch, epochs):
@@ -325,8 +437,10 @@ def training(labels_dir, model_dir, prior_means, prior_stds, path_generation_lab
         dt_s = time.time() - t0
         log_fn(f"epoch {epoch + 1}/{epochs}  loss {mean_loss:.5f}  "
                f"({dt_s:.1f}s, {steps_per_epoch / dt_s:.2f} steps/s)")
-        with open(os.path.join(log_path, "training_log.jsonl"), "a") as f:
-            f.write(json.dumps({"epoch": epoch + 1, "loss": mean_loss, "seconds": dt_s}) + "\n")
-        np.save(os.path.join(log_path, "loss_curve.npy"), np.array(loss_curve))
-        save_checkpoint(model_dir, epoch + 1, model, opt_state, gen, export_h5)
+        if rank == 0:
+            with open(os.path.join(log_path, "training_log.jsonl"), "a") as f:
+                f.write(json.dumps({"epoch": epoch + 1, "loss": mean_loss,
+                                    "seconds": dt_s}) + "\n")
+            np.save(os.path.join(log_path, "loss_curve.npy"), np.array(loss_curve))
+            save_checkpoint(model_dir, epoch + 1, model, opt_state, gen, export_h5)
     return {"model": model, "opt_state": opt_state, "loss_curve": loss_curve}

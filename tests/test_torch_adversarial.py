@@ -292,9 +292,28 @@ def test_odd_critic_size_fast_matches_off(adv_dataset, tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(adv_dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="segmenter"):
-        _run(adv_dataset, tmp_path / "a", segmentation_model_file="seg.h5")
-    with pytest.raises(NotImplementedError, match="n_devices"):
+    """The options that raised before they were ported run: the frozen
+    segmenter (a ``.pt``; without ``images_dir`` it fails, as in JAX) and
+    several output channels on the kernels' paths; n_devices > 1 without a
+    process group raises, naming how to launch it; without a GPU the default
+    device raises."""
+    cfg = dict(nb_features=2, nb_levels=2, nb_conv_per_level=1, nb_labels=3,
+               final_pred_activation="softmax")
+    torch.save(variables_to_state_dict(random_variables(cfg, in_channels=1, seed=3)),
+               str(tmp_path / "seg.pt"))
+    np.save(str(tmp_path / "eq.npy"), np.array([0, 2, 4]))
+    seg = dict(segmentation_model_file=str(tmp_path / "seg.pt"),
+               path_segmentation_equivalency=str(tmp_path / "eq.npy"))
+    out = _run(adv_dataset, tmp_path / "a", **seg)
+    assert np.isfinite(out["d_curve"][0]) and np.isfinite(out["g_curve"][0])
+    lab_dir, _, labels_npy = adv_dataset
+    with pytest.raises(ValueError, match="images_dir"):
+        _run((lab_dir, None, labels_npy), tmp_path / "a2", output_channel=[0], **seg)
+    out = _run((lab_dir, None, labels_npy), tmp_path / "two", output_channel=[0, 1],
+               input_channels=[True, True], prior_means=np.array([[10.0] * 3, [20.0] * 3] * 2),
+               prior_stds=np.array([[1.0] * 3, [2.0] * 3] * 2))
+    assert out["gen_model"].likelihood.out_channels == 2 and np.isfinite(out["g_curve"][0])
+    with pytest.raises(RuntimeError, match="--n_devices"):
         _run(adv_dataset, tmp_path / "b", n_devices=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

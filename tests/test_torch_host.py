@@ -142,7 +142,14 @@ def case_build_model_inputs(m, tmp_path):
     labels_only = m.inputs.build_model_inputs(paths, 6, None, None, batchsize=1,
                                               rng=np.random.default_rng(8),
                                               include_gmm_params=False)
-    return [next(gen), next(gen), next(labels_only)]
+    # a data-parallel rank's slice: rank 1 of 2 at a global batch of 4
+    sliced = m.inputs.build_model_inputs(paths, 6, means, stds, batchsize=4, n_channels=2,
+                                         rng=np.random.default_rng(9), local_slice=(1, 2))
+    sliced_labels = m.inputs.build_model_inputs(paths, 6, None, None, batchsize=2,
+                                                rng=np.random.default_rng(10),
+                                                include_gmm_params=False, local_slice=(0, 2))
+    return [next(gen), next(gen), next(labels_only), next(sliced), next(sliced),
+            next(sliced_labels)]
 
 
 def case_h5_import(m, tmp_path):

@@ -376,10 +376,26 @@ def test_training_warm_start_h5(tiny_dataset, tmp_path):
     assert torch.equal(model.likelihood.weight.detach(), fresh.likelihood.weight)
 
 
+def _segmenter_files(tmp_path, labels=(0, 2, 4)):
+    """A softmax segmenter of the tiny configuration (one output per label,
+    seeded random weights) saved as ``.pt``, its label list and the
+    equivalency mapping output i to ``labels[i]``."""
+    cfg = dict(nb_features=2, nb_levels=2, nb_conv_per_level=1, nb_labels=len(labels),
+               final_pred_activation="softmax")
+    path = str(tmp_path / "seg.pt")
+    torch.save(variables_to_state_dict(random_variables(cfg, in_channels=1, seed=11)), path)
+    np.save(str(tmp_path / "seg_labels.npy"), np.array(labels, np.int32))
+    return dict(segmentation_model_file=path,
+                segmentation_label_list=str(tmp_path / "seg_labels.npy"),
+                segmentation_label_equivalency=np.array(labels, np.int32))
+
+
 def test_train_cli_and_unported_options(tiny_dataset, tmp_path, monkeypatch):
     """The CLI trains on the CPU with --cpu, with its numbers coerced to int
-    indices and shapes; the options not ported yet raise; without a GPU the
-    default device raises."""
+    indices and shapes; the options that raised before they were ported
+    (remat, dropout, the frozen segmenter) now train; n_devices > 1 without a
+    process group raises, naming how to launch it; without a GPU the default
+    device raises."""
     from synthsr_tpu_torch.cli.train import main
     from synthsr_tpu_torch.train.training import training
 
@@ -393,12 +409,15 @@ def test_train_cli_and_unported_options(tiny_dataset, tmp_path, monkeypatch):
                 "--nonlin_std", "0", "--no_registration_error", "--compute_dtype", "float32",
                 "--seed", "0", "--cpu"], log_fn=lambda s: None)
     assert np.isfinite(out["loss_curve"][0])
-    for bad in (dict(remat=True), dict(n_devices=2), dict(dropout=0.1),
-                dict(segmentation_model_file="seg.h5")):
-        kwargs = _base_kwargs(tiny_dataset, str(tmp_path / "bad"))
-        kwargs.update(bad)
-        with pytest.raises(NotImplementedError):
-            training(log_fn=lambda s: None, **kwargs)
+    for i, opt in enumerate((dict(remat=True), dict(dropout=0.1),
+                             _segmenter_files(tmp_path))):
+        kwargs = _base_kwargs(tiny_dataset, str(tmp_path / f"opt{i}"))
+        kwargs.update(opt, epochs=1, steps_per_epoch=1)
+        assert np.isfinite(training(log_fn=lambda s: None, **kwargs)["loss_curve"][0]), opt
+    kwargs = _base_kwargs(tiny_dataset, str(tmp_path / "dp"))
+    kwargs.update(n_devices=2)
+    with pytest.raises(RuntimeError, match="--n_devices"):
+        training(log_fn=lambda s: None, **kwargs)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     kwargs = _base_kwargs(tiny_dataset, str(tmp_path / "nogpu"))
     kwargs["device"] = None

@@ -157,10 +157,14 @@ def test_flip_d_weights_equal_flipped_forward(full_net):
 
 
 def test_unported_options_raise():
-    for bad in (dict(use_residuals=True), dict(dilation_rate_mult=2),
+    """The options that raised before they were ported now build and run
+    (tests/test_torch_unet_options.py holds each against flax); a shape that
+    does not pool still raises."""
+    x = torch.zeros(1, 1, 8, 8, 8)
+    for opt in (dict(use_residuals=True), dict(dilation_rate_mult=2),
                 dict(conv_dropout=0.1), dict(conv_size=5)):
-        with pytest.raises(NotImplementedError):
-            UNet3D(**bad)
+        out = UNet3D(**SMALL, **opt)(x)
+        assert out.shape == (1, 2, 8, 8, 8) and bool(torch.isfinite(out).all()), opt
     with pytest.raises(ValueError):
         UNet3D(**SMALL)(torch.zeros(1, 1, 6, 8, 8))  # 6 does not halve twice
 
