@@ -33,7 +33,14 @@ path at full width (24 features, 5 levels, seeded random weights and data):
   the segmenter's share); a train step and a 10:1 cycle in a one-rank NCCL
   group against no group (equal); one adversarial cycle with the segmenter;
   one plain float32 step of three U-Net options against the same step on
-  the CPU; the fast forward of a 3-label softmax net against plain float32.
+  the CPU; the fast forward of a 3-label softmax net against plain float32;
+- the rest of the port: the halo-sharded forward (256³, full width) and one
+  halo train step (128³) in a one-rank NCCL group against the plain float32
+  forward and step; the auto-encoder and the VAE at 128³ on the card
+  against the CPU; lab2im's ``ImageGenerator`` on the 160³ label maps
+  (timed with ``utils/profiling.StepTimer``, one sample under its
+  ``trace``); random dilation and erosion against scipy; the C++ NIfTI
+  loader against the numpy path; the tutorial entry points in smoke mode.
 
     python3 chip_smoke.py
 
@@ -145,6 +152,22 @@ REMAT_BOUND = 1e-6    # relative, a step with remat "levels" vs without (the ker
 
 # (name, kernel, source channels, cout, spatial, fused epilogue, dtype)
 BF16, F32 = torch.bfloat16, torch.float32
+
+# the rest of the port (halo sharding, auto-encoder, lab2im, label ops, native
+# loader, profiling, tutorials)
+HALO_FWD_SIZE = 256   # the sharded forward at full width vs the plain float32 forward
+HALO_FWD_BOUND = 1e-5  # relative L2 (float32 summation order only)
+HALO_STEP_SIZE = 128  # one halo train step (tutorial-7 architecture, float32, SGD)
+HALO_LOSS_RTOL, HALO_PARAM_ATOL = 1e-5, 5e-5
+AE_SIZE = 128         # auto-encoder and VAE on the card vs the CPU
+AE_BOUND = 1e-4       # relative L2, float32 card (TF32 off) vs CPU
+LAB2IM_SAMPLES = 5    # timed ImageGenerator samples on the 160^3 label maps
+TUTORIAL_LIMIT_S = 90.0  # all nine tutorials in smoke mode (6.3-7.9 s on an H100)
+TUTORIAL_MAP = 96     # the tutorials' synthetic label maps (96^3; 64^3 smoke crops)
+TUTORIALS = ("tutorial_1_sr_real", "tutorial_2_sr_synthetic", "tutorial_3_synthesis_real",
+             "tutorial_4_synthesis_synthetic", "tutorial_5_sr_synthesis_multimodal_real",
+             "tutorial_6_sr_synthesis_multimodal_synthetic", "tutorial_8_estimate_priors",
+             "tutorial_7_training", "tutorial_9_log_tensor_diffusion")
 SHAPES = [
     ("1->24 @256^3", "first_mma", (1,), 24, (256, 256, 256), "bias+elu", BF16),
     ("2->24 @256^3", "first_mma", (2,), 24, (256, 256, 256), "bias+elu", BF16),
@@ -197,6 +220,35 @@ SHAPES = [
     ("1->32 @64^3 f32 leaky", "first", (1,), 32, (64, 64, 64), "bias+leaky", F32),
     ("32->64 @32^3 f32 leaky", "fwd", (32,), 64, (32, 32, 32), "bias+leaky", F32),
 ]
+
+
+def tutorial_shapes():
+    """The conv shapes of the training tutorials' smoke step (tutorials 7 and
+    9: bf16, 32^3 in, 24 features, 5 levels, so 32^3 down to 2^3, where most
+    tiles are masked; 4 and 8 input channels): (SHAPES rows of every forward
+    and input-gradient conv, WGRAD_SHAPES rows of every weight gradient)."""
+    fwd, wgrad = [], []
+    levels = [(32 >> i, 24 << i) for i in range(5)]  # (spatial, features)
+    for i, (n, f) in enumerate(levels):
+        sp = (n, n, n)
+        for c in ((4, 8) if i == 0 else (f // 2,)):
+            fwd.append((f"{c}->{f} @{n}^3", "fwd_mma", (c,), f, sp, "bias+elu", BF16))
+            wgrad.append((c, f, n, BF16))
+            if i:
+                fwd.append((f"{f}->{c} @{n}^3 (dx)", "fwd_mma", (f,), c, sp, "dx", BF16))
+        fwd.append((f"{f}->{f} @{n}^3", "fwd_mma", (f,), f, sp, "bias+elu", BF16))
+        fwd.append((f"{f}->{f} @{n}^3 (dx)", "fwd_mma", (f,), f, sp, "dx", BF16))
+        wgrad.append((f, f, n, BF16))
+        if i < len(levels) - 1:  # the decoder's [skip, up] conv of this level
+            fwd.append((f"[{f},{2 * f}]->{f} @{n}^3", "fwd_mma", (f, 2 * f), f, sp, "bias+elu",
+                        BF16))
+            fwd.append((f"{f}->{3 * f} @{n}^3 (dx)", "fwd_mma", (f,), 3 * f, sp, "dx", BF16))
+            wgrad.append((2 * f, f, n, BF16))
+    return fwd, wgrad
+
+
+TUTORIAL_SHAPES, TUTORIAL_WGRAD_SHAPES = tutorial_shapes()
+SHAPES += TUTORIAL_SHAPES
 TIMED = {"first_mma": "1->24 @256^3", "first": "1->24 @128^3 f32",
          "fwd_mma": "[24,48]->24 @256^3",
          "wgrad_mma": "(24,24) @128^3", "fwd": "24->24 @128^3 f32", "wgrad": "(24,24) @64^3 f32"}
@@ -211,6 +263,7 @@ WGRAD_SHAPES = [(4, 24, 128, BF16), (24, 24, 128, BF16), (48, 24, 128, BF16), (4
                 # and those after the first run on cuDNN in the WGAN terms)
                 (1, 32, 128, BF16), (32, 64, 64, BF16), (32, 1, 128, BF16),
                 (64, 32, 64, BF16), (128, 64, 32, BF16), (256, 128, 16, BF16)]
+WGRAD_SHAPES += TUTORIAL_WGRAD_SHAPES
 
 # synthetic inputs: (file name, shape, voxel size mm, CT); the first resamples
 # to 256^3, the second is a clinical anisotropic scan padding to 192x224x192
@@ -1343,6 +1396,294 @@ def head3_phase(conv_cf):
     return {"launches": launches, "summary": dict(rel_l2=rel, ms=ms)}
 
 
+def rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def halo_phase(root):
+    """The D-sharded U-Net (``parallel/halo.py``, ``parallel/halo_train.py``)
+    in a one-rank NCCL group (the card has one H100; NCCL puts no two ranks on
+    one GPU): the full-width forward at 256^3 against the plain float32
+    forward (both without autograd; the plain forward's own distance from
+    float64 is the scale of summation-order differences), and one halo train
+    step at 128^3 against the plain unsharded step (SGD 1e-2, l1 on the
+    centre 96^3, residual channel 2), both timed, and the halo step's device
+    time by kernel (torch.profiler)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from synthsr_tpu_torch.models.unet import UNet3D, synthsr_unet
+    from synthsr_tpu_torch.models.weights import random_variables, variables_to_state_dict
+    from synthsr_tpu_torch.parallel import halo, halo_train
+    from synthsr_tpu_torch.train.metrics import regression_loss
+
+    phase(f"halo-sharded U-Net at world size 1 (NCCL): forward {HALO_FWD_SIZE}^3 vs plain, "
+          f"one train step {HALO_STEP_SIZE}^3 vs the unsharded step")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(root, "halo_rdv"),
+                            world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        model = synthsr_unet()
+        model.load_state_dict(variables_to_state_dict(random_variables(seed=0)))
+        model.to(dev).eval()
+        x = torch.randn((1, 1) + (HALO_FWD_SIZE,) * 3, device=dev, generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sharded = halo.gather_d(halo.sharded_unet_apply(model, x, group), group)
+        torch.cuda.synchronize()
+        fwd_peak = torch.cuda.max_memory_allocated() - base
+        fwd_ms = cuda_ms(lambda: halo.sharded_unet_apply(model, x, group), 2)
+        with torch.no_grad():
+            plain = model(x)
+            plain_ms = cuda_ms(lambda: model(x), 2)
+            f32_rel = rel_l2(plain, copy.deepcopy(model).double()(x.double(), torch.float64))
+        fwd_rel = rel_l2(sharded, plain)
+        del x, sharded, plain
+        torch.cuda.empty_cache()
+
+        sd = variables_to_state_dict(random_variables(in_channels=4, seed=1))
+        image = torch.randn((1, 4) + (HALO_STEP_SIZE,) * 3, device=dev, generator=gen)
+        target = torch.randn((1, 1) + (HALO_STEP_SIZE,) * 3, device=dev, generator=gen)
+        sharded_model, plain_model = (UNet3D(in_channels=4).to(dev) for _ in range(2))
+        for m in (sharded_model, plain_model):
+            m.load_state_dict(sd)
+        step = halo_train.make_halo_train_step(
+            sharded_model, torch.optim.SGD(sharded_model.parameters(), lr=1e-2), group,
+            loss_cropping=96, residual_indices=[2])
+        params = list(plain_model.parameters())
+
+        def plain_step():
+            out, stats = plain_model.forward_train(image)
+            loss = regression_loss(out.permute(0, 2, 3, 4, 1), image.permute(0, 2, 3, 4, 1),
+                                   target.permute(0, 2, 3, 4, 1), loss_cropping=96,
+                                   work_with_residual_channel=[2])
+            grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                for p_, g in zip(params, grads):
+                    p_.sub_(1e-2 * g)
+            return loss.detach(), stats
+
+        peaks = {}
+        for name, fn in (("halo", lambda: step(image, target)), ("plain", plain_step)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            peaks[name] = (fn(), torch.cuda.max_memory_allocated() - base)
+        (loss, new_stats), step_peak = peaks["halo"]
+        (ref, stats), plain_step_peak = peaks["plain"]
+        loss_rel = abs(float(loss) - float(ref)) / abs(float(ref))
+        param_err = max(float((a - b).detach().abs().max())
+                        for a, b in zip(sharded_model.parameters(), params))
+        stat_err = max(float((new_stats[k][i] - stats[k][i]).abs().max())
+                       for k in stats for i in (0, 1))
+        # timed after the comparison: these steps move the weights on
+        step_ms = cuda_ms(lambda: step(image, target), 2)
+        plain_step_ms = cuda_ms(plain_step, 2)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step(image, target)
+            torch.cuda.synchronize()
+        rows = sorted((((getattr(ev, "self_device_time_total", 0) or 0) / 1e3, ev.key[:70])
+                       for ev in prof.key_averages()), reverse=True)
+    finally:
+        dist.destroy_process_group()
+    step_device_ms = sum(ms for ms, _ in rows)
+    print(f"  forward {HALO_FWD_SIZE}^3 (24 features, 5 levels, no autograd): sharded "
+          f"{fwd_ms:.1f} ms vs plain {plain_ms:.1f} ms, relative L2 {fwd_rel:.3e} (bound "
+          f"{HALO_FWD_BOUND:.0e}; the plain float32 forward is {f32_rel:.3e} from float64), "
+          f"peak {fwd_peak / 2 ** 30:.2f} GiB above the inputs")
+    print(f"  train step {HALO_STEP_SIZE}^3 (4 channels, float32, SGD): halo {step_ms:.1f} ms, "
+          f"peak {step_peak / 2 ** 30:.2f} GiB; plain unsharded {plain_step_ms:.1f} ms, peak "
+          f"{plain_step_peak / 2 ** 30:.2f} GiB; loss {float(loss):.6f} vs {float(ref):.6f} "
+          f"(relative {loss_rel:.2e}, bound {HALO_LOSS_RTOL:.0e}), parameters max |diff| "
+          f"{param_err:.2e}, BatchNorm statistics {stat_err:.2e} (bound {HALO_PARAM_ATOL:.0e})")
+    print(f"  profiler, one halo step: device {step_device_ms:.1f} ms; the top kernels:")
+    for ms, k in rows[:6]:
+        print(f"    {ms:8.2f} ms  {k}")
+    require(np.isfinite(fwd_rel) and fwd_rel <= HALO_FWD_BOUND, fwd_rel)
+    require(np.isfinite(float(loss)) and loss_rel <= HALO_LOSS_RTOL, loss_rel)
+    require(param_err <= HALO_PARAM_ATOL and stat_err <= HALO_PARAM_ATOL, (param_err, stat_err))
+    return dict(forward_ms=fwd_ms, plain_forward_ms=plain_ms, forward_rel_l2=fwd_rel,
+                plain_f32_vs_f64_rel_l2=f32_rel, forward_peak_bytes=fwd_peak, step_ms=step_ms,
+                step_peak_bytes=step_peak, plain_step_ms=plain_step_ms,
+                plain_step_peak_bytes=plain_step_peak, step_device_ms=step_device_ms,
+                step_top_kernels=[(k, ms) for ms, k in rows[:6]], step_loss_rel=loss_rel,
+                step_param_max_abs=param_err, step_bn_max_abs=stat_err)
+
+
+def autoencoder_phase():
+    """The auto-encoder and the VAE (the default configuration, 16 features, 3
+    levels, a conv bottleneck, with a 4-label softmax head) at 128^3 in
+    float32 on the card against the CPU, from the same seeded weights, input
+    and VAE noise."""
+    from synthsr_tpu_torch.models.autoencoder import AutoEncoder3D
+
+    phase(f"auto-encoder and VAE at {AE_SIZE}^3: the card vs the CPU")
+    out = {}
+    x = torch.randn((1, 1) + (AE_SIZE,) * 3, generator=torch.Generator().manual_seed(12))
+    for name, vae in (("ae", False), ("vae", True)):
+        torch.manual_seed(13)
+        model = AutoEncoder3D(nb_labels=4, do_vae=vae)
+        eps = torch.randn((1, 16) + (AE_SIZE // 4,) * 3,
+                          generator=torch.Generator().manual_seed(14)) if vae else None
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            cpu = model(x, eps=eps)
+            cpu_s = time.perf_counter() - t0
+            model.cuda()
+            card = model(x.cuda(), eps=None if eps is None else eps.cuda())
+            ms = cuda_ms(lambda: model(x.cuda(), eps=None if eps is None else eps.cuda()), 3)
+        rel = rel_l2(card.cpu(), cpu)
+        print(f"  {name}: output {tuple(card.shape)}, card vs CPU relative L2 {rel:.3e} (bound "
+              f"{AE_BOUND:.0e}); forward {ms:.2f} ms on the card, {cpu_s:.2f} s on the CPU")
+        require(np.isfinite(rel) and rel <= AE_BOUND, (name, rel))
+        require(torch.allclose(card.sum(1), torch.ones((), device="cuda"), atol=1e-5), name)
+        out[name] = dict(rel_l2=rel, ms=ms, cpu_s=cpu_s)
+    return out
+
+
+def lab2im_phase(root):
+    """``ImageGenerator`` on the card over the seeded synthetic 160^3 label
+    maps at full size: shapes, finite values, ms per sample (StepTimer, with a
+    CUDA synchronize); one sample under the ported ``trace`` (torch.profiler,
+    a Chrome trace)."""
+    from synthsr_tpu_torch.synth.lab2im import ImageGenerator
+    from synthsr_tpu_torch.utils.profiling import StepTimer, device_memory_stats, trace
+
+    phase(f"lab2im ImageGenerator on 160^3 label maps ({LAB2IM_SAMPLES} timed samples), "
+          "one profiled with utils/profiling.trace")
+    labels = np.load(os.path.join(root, "generation_labels.npy"))
+    gen = ImageGenerator(os.path.join(root, "labels"), generation_labels=labels,
+                         output_labels=(labels > 0).astype(np.int32), seed=0)
+    timer = StepTimer(os.path.join(root, "lab2im_steps.jsonl"), warmup_steps=1)
+    for _ in range(LAB2IM_SAMPLES + 1):
+        with timer.step():
+            image, lab = gen.generate_image()
+        require(image.shape == (160, 160, 160) and lab.shape == (160, 160, 160), image.shape)
+        require(np.isfinite(image).all() and 0 <= image.min() and image.max() <= 1 + 1e-5,
+                (image.min(), image.max()))
+        require(set(np.unique(lab)) <= {0, 1}, np.unique(lab))
+    summary = timer.summary()
+    log_dir = os.path.join(root, "lab2im_trace")
+    with trace(log_dir) as prof:
+        gen.generate_image()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
+    trace_bytes = os.path.getsize(os.path.join(log_dir, "trace.json"))
+    peak = device_memory_stats()["cuda:0"]["allocated_bytes.all.peak"]
+    print(f"  image {image.shape}, range [{image.min():.3f}, {image.max():.3f}]; "
+          f"{1e3 * summary['p50_s']:.1f} ms per sample (median of {summary['steps']}, "
+          f"mean {1e3 * summary['mean_s']:.1f}); traced sample: {trace_bytes} B Chrome trace, "
+          f"{len(events)} ops, device time {device_us / 1e3:.1f} ms; peak allocated "
+          f"{peak / 2 ** 30:.2f} GiB")
+    require(trace_bytes > 0 and len(events) > 0, trace_bytes)
+    return dict(ms_per_sample=1e3 * summary["p50_s"], mean_ms=1e3 * summary["mean_s"],
+                samples=summary["steps"], traced_device_ms=device_us / 1e3,
+                trace_bytes=trace_bytes)
+
+
+def label_ops_phase():
+    """``random_dilation_erosion`` on the card (the ball convolution is
+    F.conv3d) against scipy's binary dilation and erosion."""
+    from scipy.ndimage import binary_dilation, binary_erosion
+
+    from synthsr_tpu_torch.synth import label_ops
+
+    phase("label ops: random dilation and erosion on the card vs scipy (128^3)")
+    rng = np.random.default_rng(15)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    out = {}
+    for op, radius, density, kw in (("dilation", 2, 0.9, {}),
+                                    ("erosion", 1, 0.4, dict(border_value=1))):
+        x = (rng.uniform(size=(128, 128, 128, 1)) > density).astype(np.float32)
+        p, f = label_ops.sample_dilation_erosion(gen, radius, radius, operation=op)
+        got = label_ops.random_dilation_erosion(torch.from_numpy(x).cuda(), p, f, radius,
+                                                return_mask=True)
+        ms = cuda_ms(lambda: label_ops.random_dilation_erosion(
+            torch.from_numpy(x).cuda(), p, f, radius, return_mask=True), 3)
+        ball = label_ops.unit_kernel_np(radius, 3).astype(bool)
+        fn = binary_dilation if op == "dilation" else binary_erosion
+        want = fn(x[..., 0] > 0, structure=ball, **kw)
+        mism = int((got.cpu().numpy()[..., 0] != want).sum())
+        print(f"  {op} radius {radius}: {mism} voxels differ from scipy; {ms:.3f} ms")
+        require(mism == 0, (op, mism))
+        out[op] = dict(mismatches=mism, ms=ms)
+    return out
+
+
+def native_phase(root):
+    """The C++ NIfTI loader (built with g++ on first use) reads back written
+    volumes bit-equal to the numpy path."""
+    from synthsr_tpu_torch.io.volume import load_volume, save_volume
+    from synthsr_tpu_torch.native import native_available
+
+    phase("native NIfTI loader: written volumes read back bit-equal to the numpy path")
+    t0 = time.perf_counter()
+    ok = native_available()
+    build_s = time.perf_counter() - t0
+    require(ok, "native loader unavailable (g++ or zlib missing)")
+    rng = np.random.default_rng(17)
+    out = {"build_s": build_s}
+    for name, vol, dtype in (("labels.nii.gz", rng.integers(0, 60, (160, 160, 160)), "int32"),
+                             ("image.nii", rng.normal(50, 20, (192, 224, 192)), "float32")):
+        path = os.path.join(root, name)
+        save_volume(vol.astype(dtype), np.eye(4), None, path)
+        times = {}
+        res = {}
+        for fast in (True, False):
+            t0 = time.perf_counter()
+            res[fast] = load_volume(path, im_only=False, dtype=dtype, fast=fast)
+            times[fast] = time.perf_counter() - t0
+        equal = all(np.array_equal(a, b) for a, b in zip(res[True][:2], res[False][:2]))
+        print(f"  {name} {vol.shape} {dtype}: bit-equal {equal}; native {1e3 * times[True]:.1f} "
+              f"ms, numpy {1e3 * times[False]:.1f} ms")
+        require(equal and res[True][0].dtype == np.dtype(dtype), name)
+        out[name] = dict(native_ms=1e3 * times[True], numpy_ms=1e3 * times[False])
+    return out
+
+
+def tutorials_phase(conv_cf, root):
+    """The nine tutorial entry points in smoke mode on the card, in one
+    process (``SYNTHSR_SMOKE=1``, ``SYNTHSR_DEVICE=cuda``, seeded synthetic
+    96^3 label maps and priors), within TUTORIAL_LIMIT_S.  Each must write its
+    outputs.  The training tutorials' conv shapes are held against the plain
+    versions in "kernels vs plain" and "H-wgrad vs plain" (TUTORIAL_SHAPES,
+    TUTORIAL_WGRAD_SHAPES)."""
+    import importlib
+
+    data = os.path.join(root, "tutorial_data")
+    results = os.path.join(root, "tutorial_results")
+    os.environ.update(SYNTHSR_DATA=data, SYNTHSR_RESULTS=results, SYNTHSR_SMOKE="1",
+                      SYNTHSR_DEVICE="cuda")
+    from synthsr_tpu_torch.examples.common import write_synthetic_data
+
+    phase(f"tutorial entry points in smoke mode (limit {TUTORIAL_LIMIT_S:.0f} s)")
+    write_synthetic_data(data, shape=(TUTORIAL_MAP,) * 3)
+    conv_cf.reset_launch_counts()
+    seconds = {}
+    t_all = time.perf_counter()
+    for name in TUTORIALS:
+        t0 = time.perf_counter()
+        importlib.import_module(f"synthsr_tpu_torch.examples.{name}").main()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        written = [f for _, _, fs in os.walk(results) for f in fs]
+        print(f"  {name}: {seconds[name]:.2f} s; {len(written)} files under the results so far",
+              flush=True)
+    launches = dict(conv_cf.LAUNCHES)
+    total = time.perf_counter() - t_all
+    print(f"  all {len(TUTORIALS)} in {total:.1f} s; launches {launches}")
+    require(total <= TUTORIAL_LIMIT_S, total)
+    require(launches["fwd_mma"] > 0 and launches["wgrad_mma"] > 0, launches)
+    for sub in ("7-training", "9-log-tensor"):  # bf16 training on the kernels
+        require(os.path.isfile(os.path.join(results, sub, "001.pt")), sub)
+    return {"launches": launches, "summary": dict(seconds=seconds, seconds_all=total)}
+
+
 def phantom(shape, zooms, ct, rng):
     """Ellipsoids of random intensity plus noise, in HU for a CT."""
     grid = np.meshgrid(*[(np.arange(n) - n / 2) * z for n, z in zip(shape, zooms)],
@@ -1683,8 +2024,14 @@ def main():
         dp = dp_phase(conv_cf, root, seg_train["trained"], seg_train["segmenter"],
                       adversarial["trained"], pm, ps)
         adv_seg = adversarial_segmenter_phase(conv_cf, root, pm, ps, seg_train["segmenter"])
+        halo = halo_phase(root)
+        lab2im = lab2im_phase(root)
+        native = native_phase(root)
+        tutorials = tutorials_phase(conv_cf, root)
     options = options_phase()
     head3 = head3_phase(conv_cf)
+    autoencoder = autoencoder_phase()
+    label_ops = label_ops_phase()
     path_launches = {"predict": launches, "predict_float32": predict_f32["launches"],
                      "predict_large_fov": large_fov["launches"],
                      "hyperfine": hyperfine["launches"], "train": train["launches"],
@@ -1694,7 +2041,8 @@ def main():
                      "train_segmenter": seg_train["launches"],
                      "data_parallel_world_1": dp["launches"],
                      "adversarial_segmenter": adv_seg["launches"],
-                     "fast_forward_3_label": head3["launches"]}
+                     "fast_forward_3_label": head3["launches"],
+                     "tutorials": tutorials["launches"]}
 
     kernels = []
     fwd_also = [f"{PALLAS}:920", f"{PALLAS}:1297", f"{PALLAS}:127"]
@@ -1725,7 +2073,9 @@ def main():
                       "train_segmenter": seg_train["summary"],
                       "data_parallel_world_1": dp["summary"],
                       "adversarial_segmenter": adv_seg["summary"], "unet_options": options,
-                      "fast_forward_3_label": head3["summary"]}))
+                      "fast_forward_3_label": head3["summary"], "halo_world_1": halo,
+                      "autoencoder": autoencoder, "lab2im": lab2im, "label_ops": label_ops,
+                      "native_loader": native, "tutorials": tutorials["summary"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -28,7 +28,10 @@ and takes masks drawn before the forward (:func:`draw_dropout_masks`), so a
 rematerialised forward applies the same ones.  ``forward`` is the reference
 of the fast forward (``models/unet_cf.py``) and ``forward_train`` of the
 fast train forward (``models/unet_cf_train.py``); models outside the fast
-paths' gate train and run on these.
+paths' gate train and run on these.  With ``halo`` (a process group whose
+ranks hold consecutive D-slices of one volume) every conv first exchanges
+its halo planes with the neighbouring ranks: the D-sharded forward and train
+step of ``parallel/halo.py`` and ``parallel/halo_train.py``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.halo import halo_pad
 from ..parallel.mesh import all_reduce_mean
 
 # predict_command_line.py:65-77 of the original, as synthsr_tpu.models.unet.synthsr_unet
@@ -125,15 +129,23 @@ def upsample2(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
         .reshape(*lead, f * d, f * h, f * w)
 
 
-def same_conv3d(x, w, b, dilation: int = 1):
+def same_conv3d(x, w, b, dilation: int = 1, halo=None):
     """flax's SAME convolution, stride 1: the dilated kernel's padding
     ``dilation·(k - 1)`` split low ``total // 2``, high the rest (even
-    kernels pad one more voxel at the high end)."""
+    kernels pad one more voxel at the high end).  ``halo``: the process group
+    whose ranks hold consecutive D-slices of one volume; D is then padded
+    with the neighbours' planes (``parallel/halo.halo_pad``, zeros at the
+    volume's ends) instead of zeros."""
     total = dilation * (w.shape[2] - 1)
-    lo = total // 2
-    if total - lo == lo:
+    lo, hi = total // 2, total - total // 2
+    if halo is not None and total:
+        x = halo_pad(x, halo, (lo, hi))  # D is VALID over the exchanged planes
+        if lo == hi:
+            return F.conv3d(x, w, b, padding=(0, lo, lo), dilation=dilation)
+        return F.conv3d(F.pad(x, (lo, hi, lo, hi)), w, b, dilation=dilation)
+    if lo == hi:
         return F.conv3d(x, w, b, padding=lo, dilation=dilation)
-    return F.conv3d(F.pad(x, (lo, total - lo) * 3), w, b, dilation=dilation)
+    return F.conv3d(F.pad(x, (lo, hi) * 3), w, b, dilation=dilation)
 
 
 def bn_batch_stats(xs, dims, group=None):
@@ -249,9 +261,10 @@ class UNet3D(nn.Module):
     def _act(self, x):
         return F.elu(x) if self.config["activation"] == "elu" else F.relu(x)
 
-    def _conv(self, name, x):
+    def _conv(self, name, x, halo):
         mod = getattr(self, name)
-        return same_conv3d(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype), mod.dilation[0])
+        return same_conv3d(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype), mod.dilation[0],
+                           halo)
 
     def _norm(self, name, x, train, group, stats):
         """BatchNorm ``name`` in float32, rounded to ``x.dtype``: batch
@@ -280,13 +293,13 @@ class UNet3D(nn.Module):
         return torch.where(keep, x / (1.0 - self.config["conv_dropout"]),
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def _level_convs(self, prefix, x, masks):
+    def _level_convs(self, prefix, x, masks, halo):
         """One level's conv stack: (the skip tap, the output)."""
         res, ncpl = self.config["use_residuals"], self.nb_conv_per_level
         tap = None
         for conv in range(ncpl):
             last = conv == ncpl - 1
-            x = self._conv(f"{prefix}_{conv}", x)
+            x = self._conv(f"{prefix}_{conv}", x, halo)
             if not (res and last):
                 x = self._act(x)
             if last:
@@ -294,15 +307,15 @@ class UNet3D(nn.Module):
             x = self._dropout(f"{prefix}_{conv}", x, masks)
         return tap, x
 
-    def _residual(self, name, x, first):
+    def _residual(self, name, x, first, halo):
         """The residual add with ``first`` (through conv ``name`` when the
         model has it), then the activation."""
         if not self.config["use_residuals"]:
             return x
-        add = self._act(self._conv(name, first)) if hasattr(self, name) else first
+        add = self._act(self._conv(name, first, halo)) if hasattr(self, name) else first
         return self._act(x + add)
 
-    def _encoder_stage(self, level, train, masks, group):
+    def _encoder_stage(self, level, train, masks, group, halo):
         pool = self.config["pool_size"]
 
         def stage(x):
@@ -310,12 +323,12 @@ class UNet3D(nn.Module):
             if level > 0:
                 x = self._norm(f"bn_down_{level - 1}", x, train, group, stats)
                 x = F.max_pool3d(x, pool)
-            tap, out = self._level_convs(f"conv_downarm_{level}", x, masks)
-            return (tap, self._residual(f"expand_down_merge_{level}", out, x)), stats
+            tap, out = self._level_convs(f"conv_downarm_{level}", x, masks, halo)
+            return (tap, self._residual(f"expand_down_merge_{level}", out, x, halo)), stats
 
         return stage
 
-    def _decoder_stage(self, level, train, masks, group):
+    def _decoder_stage(self, level, train, masks, group, halo):
         nl = self.nb_levels
 
         def stage(x, *skip):
@@ -326,22 +339,23 @@ class UNet3D(nn.Module):
             up = x
             if skip:
                 x = torch.cat([skip[0].to(x.dtype), x], 1)
-            _, x = self._level_convs(f"conv_uparm_{nl + level}", x, masks)
-            x = self._residual(f"expand_up_merge_{level}", x, up)
+            _, x = self._level_convs(f"conv_uparm_{nl + level}", x, masks, halo)
+            x = self._residual(f"expand_up_merge_{level}", x, up, halo)
             return (self._norm(f"bn_up_{level}", x, train, group, stats),), stats
 
         return stage
 
-    def _body(self, x, train, masks, group, levels_remat):
+    def _body(self, x, train, masks, group, levels_remat, halo=None):
         """The net on (N, C, D, H, W) in ``x.dtype``: (float32 output, stats).
         With ``levels_remat`` each level runs as one checkpointed stage whose
         inputs are the level boundaries (the skip taps and the decoder
-        levels' outputs, JAX's ``unet_skip_{l}`` and ``unet_dec_{l}``)."""
+        levels' outputs, JAX's ``unet_skip_{l}`` and ``unet_dec_{l}``).
+        ``halo``: the group over which every conv exchanges D planes."""
         nl = self.nb_levels
         call = checkpoint_stage if levels_remat else run_stage
         stats, taps = {}, []
         for level in range(nl):
-            (tap, x), st = call(self._encoder_stage(level, train, masks, group), x)
+            (tap, x), st = call(self._encoder_stage(level, train, masks, group, halo), x)
             taps.append(tap)
             stats.update(st)
         if nl == 1:
@@ -349,7 +363,7 @@ class UNet3D(nn.Module):
         for level in range(nl - 1):
             concat = level < nl - self.config["skip_n_concatenations"] - 1
             skip = (taps[nl - 2 - level],) if concat else ()
-            (x,), st = call(self._decoder_stage(level, train, masks, group), x, *skip)
+            (x,), st = call(self._decoder_stage(level, train, masks, group, halo), x, *skip)
             stats.update(st)
         lik = self.likelihood
         x = F.conv3d(x.to(lik.weight.dtype), lik.weight, lik.bias)
@@ -358,14 +372,22 @@ class UNet3D(nn.Module):
         return x, stats
 
     def forward_train(self, x: torch.Tensor, dtype: torch.dtype = torch.float32, masks=None,
-                      group=None, remat=False):
+                      group=None, remat=False, halo=None):
         """Train mode: (N, C, D, H, W) -> ((N, nb_labels, D, H, W) float32,
         {bn name: (new running_mean, new running_var)}).  BatchNorm normalises
         with the batch's statistics (averaged over the ranks of ``group``);
         the module's buffers are not written.  ``masks``: the dropout keep
         masks of :func:`draw_dropout_masks` (required when the model has
         dropout).  ``remat``: False, True (the whole net is recomputed in the
-        backward pass) or "levels" (one level at a time)."""
+        backward pass) or "levels" (one level at a time).  ``halo``: instead
+        of ``group``, a group whose ranks hold equal consecutive D-slices of
+        the batch (``parallel/halo_train.py``): every conv exchanges D planes
+        over it, and BatchNorm's statistics over it are the whole volume's."""
+        if halo is not None:
+            if group is not None:
+                raise ValueError("a data-parallel group and a halo group together are not "
+                                 "supported")
+            group = halo
         check_poolable(x.shape[2:], self.nb_levels, self.config["pool_size"])
         if self.config["conv_dropout"] and masks is None:
             raise ValueError("a model with dropout trains on pre-drawn masks "
@@ -374,17 +396,20 @@ class UNet3D(nn.Module):
         x = x.to(dtype)
         if remat is True:
             def whole(t):
-                out, stats = self._body(t, True, masks, group, False)
+                out, stats = self._body(t, True, masks, group, False, halo)
                 return (out,), stats
 
             (out,), stats = checkpoint_stage(whole, x)
             return out, stats
-        return self._body(x, True, masks, group, remat == "levels")
+        return self._body(x, True, masks, group, remat == "levels", halo)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """(N, C, D, H, W) -> (N, nb_labels, D, H, W), float32, inference."""
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+                halo=None) -> torch.Tensor:
+        """(N, C, D, H, W) -> (N, nb_labels, D, H, W), float32, inference.
+        ``halo``: the group whose ranks hold consecutive D-slices of the
+        volume (``parallel/halo.py``)."""
         check_poolable(x.shape[2:], self.nb_levels, self.config["pool_size"])
-        return self._body(x.to(dtype), False, None, None, False)[0]
+        return self._body(x.to(dtype), False, None, None, False, halo)[0]
 
 
 def dropout_sites(model: UNet3D):

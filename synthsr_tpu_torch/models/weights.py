@@ -17,7 +17,12 @@ It stands in for flax ``init`` and for the glue around ``models/h5_import.py``
   do the same for the critic (``models/discriminator.py``): conv kernels as
   above, dense kernels (in, out) <-> ``nn.Linear`` weights (out, in), with
   ``dense_0``'s rows in flax's channels-last flatten order on both sides;
-  :func:`random_disc_variables` builds seeded random critic weights.
+  :func:`random_disc_variables` builds seeded random critic weights;
+- :func:`ae_variables_to_state_dict` / :func:`ae_state_dict_to_variables`
+  do it for the auto-encoder (``models/autoencoder.py``): conv kernels as
+  above, dense kernels transposed, with the rows (columns) of the dense
+  bottleneck's input (output) reordered from flax's channels-last flatten
+  to the port's NCDHW flatten.
 """
 
 from __future__ import annotations
@@ -163,4 +168,69 @@ def random_disc_variables(input_shape, in_channels: int = 1, n_filters: int = 32
     hidden = n_filters * 2 ** n_levels
     params["dense_0"] = layer((c * int(np.prod(spatial)), hidden))
     params["dense_out"] = layer((hidden, 1))
+    return {"params": params}
+
+
+def _flat_order(spatial, channels):
+    """Index i of the NCDHW flatten of a (C, *spatial) map -> its index in
+    flax's channels-last flatten."""
+    return np.arange(int(np.prod(spatial)) * channels).reshape(*spatial, channels) \
+        .transpose(3, 0, 1, 2).reshape(-1)
+
+
+def _ae_dense_perm(params, spatial):
+    """The channels-last flatten index of each NCDHW position of the dense
+    bottleneck's (C, D, H, W) input, C from the last encoder conv."""
+    convs = sorted(k for k in params if k.startswith("conv_downarm_"))
+    last = max(convs, key=lambda k: tuple(int(v) for v in k.split("_")[2:]))
+    channels = np.asarray(params[last]["kernel"]).shape[-1]
+    if spatial is None:
+        raise ValueError("a dense bottleneck needs its spatial shape (D, H, W)")
+    return _flat_order(spatial, channels)
+
+
+def ae_variables_to_state_dict(variables: dict, spatial=None) -> dict:
+    """flax ``AutoEncoder3D`` ``{"params"}`` -> the port's state dict;
+    ``spatial``: the bottleneck's (D, H, W), needed for a dense bottleneck."""
+    params = variables["params"]
+    sd = disc_variables_to_state_dict(
+        {"params": {k: v for k, v in params.items() if k != "single_ae"}})
+    ae = params["single_ae"]
+    perm = _ae_dense_perm(params, spatial) if "mu_enc" in ae else None
+    for name, p in ae.items():
+        k = np.array(p["kernel"], np.float32)
+        b = np.array(p["bias"], np.float32)
+        if k.ndim == 5:
+            w = k.transpose(4, 3, 0, 1, 2)
+        elif name == "ae_mu_dec":
+            w, b = k[:, perm].T, b[perm]
+        else:
+            w = k[perm].T
+        sd[f"single_ae.{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
+        sd[f"single_ae.{name}.bias"] = torch.from_numpy(np.ascontiguousarray(b))
+    return sd
+
+
+def ae_state_dict_to_variables(sd: dict, spatial=None) -> dict:
+    """The port's ``AutoEncoder3D`` state dict -> flax ``{"params"}`` of numpy
+    arrays (the inverse of :func:`ae_variables_to_state_dict`)."""
+    params = disc_state_dict_to_variables(
+        {k: v for k, v in sd.items() if not k.startswith("single_ae.")})["params"]
+    ae = {}
+    names = sorted({k.split(".")[1] for k in sd if k.startswith("single_ae.")})
+    perm = _ae_dense_perm(params, spatial) if "mu_enc" in names else None
+    for name in names:
+        w = sd[f"single_ae.{name}.weight"].detach().cpu().numpy()
+        b = sd[f"single_ae.{name}.bias"].detach().cpu().numpy()
+        if w.ndim == 5:
+            k = w.transpose(2, 3, 4, 1, 0)
+        elif name == "ae_mu_dec":
+            k, flax_b = np.empty_like(w.T), np.empty_like(b)
+            k[:, perm], flax_b[perm] = w.T, b
+            b = flax_b
+        else:
+            k = np.empty_like(w.T)
+            k[perm] = w.T
+        ae[name] = {"kernel": np.ascontiguousarray(k), "bias": b}
+    params["single_ae"] = ae
     return {"params": params}

@@ -7,6 +7,10 @@ headers, so a build takes seconds, not minutes).  The library lands in
 ``synthsr_tpu_torch/_build/<hash of the sources and flags>/``, a directory git
 ignores, on first use; later processes reuse it.  A missing ``nvcc`` or a
 failed compile raises: there is no fallback.
+
+:func:`digest`, :func:`build_library` and :func:`load_library` are the
+build-on-first-use steps themselves; the host NIfTI loader (``native/``)
+builds its g++ library with them too.
 """
 
 from __future__ import annotations
@@ -65,11 +69,51 @@ def find_nvcc() -> str:
     return found
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update((CSRC_DIR / name).read_bytes())
+def digest(paths, extra=()) -> str:
+    """16 hex digits of a SHA-256 over the strings ``extra`` and the bytes of
+    the files ``paths``: the name of a build's directory."""
+    h = hashlib.sha256(" ".join(extra).encode())
+    for path in paths:
+        h.update(Path(path).read_bytes())
     return h.hexdigest()[:16]
+
+
+def source_hash() -> str:
+    return digest([CSRC_DIR / name for name in SOURCES + HEADERS], NVCC_FLAGS)
+
+
+def build_library(lib: Path, stages, timeout=None) -> tuple[bool, float, list]:
+    """Build the shared library ``lib``: ``stages(tmp)`` gives lists of
+    commands for a temporary library path ``tmp`` beside ``lib``; the
+    commands of one list run in parallel processes, a list only when the one
+    before succeeded, each within ``timeout`` seconds.  When all succeed
+    ``tmp`` is renamed onto ``lib`` (atomic: concurrent builders never load
+    a partial file).  Returns (ok, seconds, [(command, return code, its
+    output)])."""
+    lib = Path(lib)
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
+    t0, logs, ok = time.perf_counter(), [], True
+    try:
+        for cmds in stages(tmp):
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in cmds]
+            try:
+                outs = [p.communicate(timeout=timeout)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            logs += [(c, p.returncode, out) for c, p, out in zip(cmds, procs, outs)]
+            if any(p.returncode for p in procs):
+                ok = False
+                break
+        if ok:
+            os.replace(tmp, lib)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return ok, time.perf_counter() - t0, logs
 
 
 def build() -> tuple[Path, float]:
@@ -83,39 +127,36 @@ def build() -> tuple[Path, float]:
     if lib.is_file():
         return lib, 0.0
     nvcc = find_nvcc()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tag = f"tmp{os.getpid()}"
-    objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
-    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o), str(CSRC_DIR / s)]
-            for s, o in zip(SOURCES, objs)]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    logs = [p.communicate()[0] for p in procs]
-    tmp = out_dir / f"libsynthsr_conv.so.{tag}"
-    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
-            *map(str, objs)]
-    failed = [" ".join(c) + "\n" + log for c, p, log in zip(cmds, procs, logs) if p.returncode]
-    if not failed:
-        res = subprocess.run(link, capture_output=True, text=True, check=False)
-        logs.append(res.stdout + res.stderr)
-        if res.returncode:
-            failed.append(" ".join(link) + "\n" + res.stdout + res.stderr)
-    seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(
-        "\n".join(" ".join(c) + "\n" + log for c, log in zip(cmds + [link], logs)))
-    for o in objs:
-        o.unlink(missing_ok=True)
-    if failed:
+    objs = [out_dir / f"{Path(s).stem}.tmp{os.getpid()}.o" for s in SOURCES]
+
+    def stages(tmp):
+        return [[[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o), str(CSRC_DIR / s)]
+                 for s, o in zip(SOURCES, objs)],
+                [[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+                  *map(str, objs)]]]
+
+    try:
+        ok, seconds, logs = build_library(lib, stages)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text("\n".join(" ".join(c) + "\n" + out for c, _, out in logs))
+    if not ok:
+        failed = [" ".join(c) + "\n" + out for c, rc, out in logs if rc]
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-8000:])
-    os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
     return lib, seconds
 
 
-def load(path: Path) -> ctypes.CDLL:
+def load_library(path, signatures) -> ctypes.CDLL:
+    """``ctypes.CDLL(path)`` with ``signatures`` {name: (argtypes, restype)}
+    set on its functions."""
     lib = ctypes.CDLL(str(path))
-    for name, (argtypes, restype) in _SIGNATURES.items():
+    for name, (argtypes, restype) in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def load(path: Path) -> ctypes.CDLL:
+    return load_library(path, _SIGNATURES)

@@ -17,11 +17,16 @@ its contiguous slice of the global batch (:func:`local_slice`).
   ``bn_axis``): its backward averages the cotangents as well, so each rank's
   gradient holds the other ranks' losses' paths through the statistics;
 - :func:`all_reduce_mean_list` averages a list of tensors (the gradients and
-  the loss) in one flat collective.
+  the loss) in one flat collective;
+- :func:`all_reduce_sum` and :func:`all_reduce_sum_list` are the sums both
+  derive from, which the halo-sharded step (``parallel/halo_train.py``)
+  takes as they are: its ranks hold parts of one example, so their losses
+  and gradients add up.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import shutil
 import tempfile
@@ -75,41 +80,57 @@ def local_slice(group):
     return None if group is None else rank_and_size(group)
 
 
-class _MeanAllReduce(torch.autograd.Function):
+class _SumAllReduce(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, group):
         ctx.group = group
         out = t.detach().clone()
         dist.all_reduce(out, group=group)
-        return out / dist.get_world_size(group)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.detach().contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
-        return g / dist.get_world_size(ctx.group), None
+        return g, None
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group`` (``t`` itself for None),
+    differentiable: the backward sums the cotangents over the ranks (JAX's
+    ``psum``)."""
+    return t if group is None else _SumAllReduce.apply(t, group)
 
 
 def all_reduce_mean(t: torch.Tensor, group) -> torch.Tensor:
     """The mean of ``t`` over the ranks of ``group`` (``t`` itself for None),
     differentiable: the backward averages the cotangents over the ranks."""
-    return t if group is None else _MeanAllReduce.apply(t, group)
+    return t if group is None else all_reduce_sum(t, group) / dist.get_world_size(group)
 
 
-def all_reduce_mean_list(ts, group) -> list:
-    """The rank mean of each tensor in ``ts``, as one flat float32 collective
-    (no gradient); ``ts`` itself for None."""
+def all_reduce_sum_list(ts, group) -> list:
+    """The rank sum of each tensor in ``ts``, as one flat collective in
+    float32 (float64 when a tensor is), no gradient; ``ts`` itself for None."""
     if group is None:
         return list(ts)
-    flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in ts])
+    acc = functools.reduce(torch.promote_types, (t.dtype for t in ts), torch.float32)
+    flat = torch.cat([t.detach().reshape(-1).to(acc) for t in ts])
     dist.all_reduce(flat, group=group)
-    flat /= dist.get_world_size(group)
     out, off = [], 0
     for t in ts:
         out.append(flat[off:off + t.numel()].reshape(t.shape).to(t.dtype))
         off += t.numel()
     return out
+
+
+def all_reduce_mean_list(ts, group) -> list:
+    """The rank mean of each tensor in ``ts`` (:func:`all_reduce_sum_list`
+    over the world size)."""
+    if group is None:
+        return list(ts)
+    n = dist.get_world_size(group)
+    return [t / n for t in all_reduce_sum_list(ts, group)]
 
 
 def _entry(fn, rank, world_size, init_method, device_type, args):

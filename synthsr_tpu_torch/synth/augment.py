@@ -99,9 +99,7 @@ def sample_deformation(gen, spatial, crop_shape, scaling_bounds=0.15, rotation_b
     ±clip_svf_sigmas·nonlin_std as the JAX package does)."""
     draws = {}
     if list(crop_shape) != list(spatial):
-        room = torch.tensor([s - c for s, c in zip(spatial, crop_shape)],
-                            dtype=torch.float32, device=gen.device)
-        draws["crop_idx"] = torch.floor(uniform(gen, (3,)) * room).long()
+        draws["crop_idx"] = sample_crop(gen, spatial, crop_shape)
     if _applies_affine(scaling_bounds, rotation_bounds, shearing_bounds, translation_bounds,
                        enable_90_rotations):
         draws["affine"] = sample_affine_matrix(gen, rotation_bounds, scaling_bounds,
@@ -127,10 +125,7 @@ def spatial_deformation(vols, methods, crop_shape, crop_idx=None, affine=None, s
     dev = vols[0].device
     idx = torch.zeros(3, dtype=torch.long, device=dev) if crop_idx is None else crop_idx
     if affine is None and svf is None:
-        return [v.index_select(0, idx[0] + torch.arange(crop_shape[0], device=dev))
-                .index_select(1, idx[1] + torch.arange(crop_shape[1], device=dev))
-                .index_select(2, idx[2] + torch.arange(crop_shape[2], device=dev))
-                for v in vols]
+        return random_crop(vols, idx, crop_shape)
     coords = [idx[d].to(torch.float32) + torch.arange(crop_shape[d], dtype=torch.float32,
                                                        device=dev) for d in range(3)]
     mesh = list(torch.meshgrid(*coords, indexing="ij"))
@@ -154,6 +149,25 @@ def spatial_deformation(vols, methods, crop_shape, crop_idx=None, affine=None, s
         loc = torch.stack(mesh, -1) + svf_w
     return [interp.interpn(v.to(torch.float32), loc, method=m).to(v.dtype)
             for v, m in zip(vols, methods)]
+
+
+def sample_crop(gen, spatial, crop_shape):
+    """The offset of :func:`random_crop`: (3,) int64, floor(U(0, 1)·(dim -
+    crop)) per axis, as JAX's ``augment.random_crop`` draws it."""
+    room = torch.tensor([s - c for s, c in zip(spatial, crop_shape)], dtype=torch.float32,
+                        device=gen.device)
+    return torch.floor(uniform(gen, (3,)) * room).long()
+
+
+def random_crop(vols, crop_idx, crop_shape):
+    """Crop every (X, Y, Z, C) tensor of ``vols`` to ``crop_shape`` at the
+    offset ``crop_idx`` (reference RandomCrop, lab2im/layers.py:214-274)."""
+    dev = vols[0].device
+    idx = crop_idx.to(dev)
+    return [v.index_select(0, idx[0] + torch.arange(crop_shape[0], device=dev))
+            .index_select(1, idx[1] + torch.arange(crop_shape[1], device=dev))
+            .index_select(2, idx[2] + torch.arange(crop_shape[2], device=dev))
+            for v in vols]
 
 
 # ---------------------------------------------------------------------------

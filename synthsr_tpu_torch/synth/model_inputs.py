@@ -1,7 +1,5 @@
 """Host-side input sampler: random label-map pick + GMM prior draws.  The
-port's own copy of ``synthsr_tpu/synth/model_inputs.py``, without its
-lab2im ``use_specific_stats_for_channel`` option, which no caller of the port
-sets.
+port's own copy of ``synthsr_tpu/synth/model_inputs.py``.
 
 Re-implementation of ``SynthSR/model_inputs.py:25-139``: an infinite generator
 yielding (label_map, means, stds[, real_image]) batches.  Per reference
@@ -24,11 +22,15 @@ def build_model_inputs(path_label_maps, n_labels, prior_means, prior_stds,
                        prior_distributions="normal", path_images=None,
                        batchsize=1, n_channels=1, generation_classes=None,
                        rng: np.random.Generator | None = None,
+                       use_specific_stats_for_channel=None,
                        include_gmm_params=True, local_slice=None):
     """Infinite generator of model inputs (lists stacked to batch arrays).
 
-    A 2n-row prior array must have one 2-row block per channel
-    (model_inputs.py:105-116).  ``include_gmm_params=False`` yields only
+    ``use_specific_stats_for_channel``: None = SynthSR semantics (a 2n-row
+    prior array must have one 2-row block per channel, model_inputs.py:105-116);
+    True = the same as the lab2im option (image_generator.py); False = the
+    lab2im default, a random modality block is drawn per channel.
+    ``include_gmm_params=False`` yields only
     (labels[, image]), for the training path that draws the GMM parameters on
     the device (``synth/sampling.make_gmm_sampler``).
 
@@ -75,12 +77,13 @@ def build_model_inputs(path_label_maps, n_labels, prior_means, prior_stds,
             stds = np.empty((1, n_labels, 0))
             for channel in range(n_channels):
                 pm, ps = prior_means, prior_stds
-                if isinstance(pm, np.ndarray):
+                per_channel = use_specific_stats_for_channel in (None, True)
+                if isinstance(pm, np.ndarray) and per_channel:
                     if pm.shape[0] / 2 != n_channels:
                         raise ValueError("the number of blocks in prior_means "
                                          "does not match n_channels")
                     pm = pm[2 * channel: 2 * channel + 2, :]
-                if isinstance(ps, np.ndarray):
+                if isinstance(ps, np.ndarray) and per_channel:
                     if ps.shape[0] / 2 != n_channels:
                         raise ValueError("the number of blocks in prior_stds "
                                          "does not match n_channels")

@@ -1,11 +1,15 @@
 """Parameter plumbing and host-side sampling helpers: the port's own copy of
-the functions it uses from ``synthsr_tpu/utils/misc.py`` (pure Python and
-numpy; reference ``ext/lab2im/utils.py:287-399`` reformat helpers,
-``:402-421`` get_dims,
-``:601-614`` padding margin, ``:821-832`` CLI type inference, ``:835-891``
-LoopInfo, ``:894-944`` LUT / divisibility, ``:961-1049``
+``synthsr_tpu/utils/misc.py`` (pure Python and numpy; reference
+``ext/lab2im/utils.py:287-399`` reformat helpers, ``:402-424`` get_dims and
+add_axis, ``:296-316`` pickles and the model summary, ``:601-614`` padding
+margin, ``:620-672`` the affine matrix, ``:821-832`` CLI type inference,
+``:835-891`` LoopInfo, ``:894-958`` LUT / divisibility / ball structure,
+``:917-925`` the training generator, ``:961-1049``
 draw_value_from_distribution).  Each function behaves as its namesake there;
-``tests/test_torch_host.py`` holds them equal.
+``tests/test_torch_host.py`` holds them equal, signatures included.  The
+JAX package's ``enable_persistent_compile_cache`` configures JAX's compile
+cache and has no counterpart here; ``write_model_summary`` also takes a
+``torch.nn.Module``.
 """
 
 from __future__ import annotations
@@ -86,6 +90,14 @@ def get_dims(shape, max_channels=10):
     return len(shape), 1
 
 
+def add_axis(x, axis=0):
+    """Insert singleton axes (axis can be an int or list; reference utils.py:424)."""
+    axis = reformat_to_list(axis)
+    for ax in axis:
+        x = np.expand_dims(x, axis=ax)
+    return x
+
+
 def get_padding_margin(cropping, loss_cropping):
     """Per-axis (cropping - loss_cropping)/2 margin (reference utils.py:601-614)."""
     if (cropping is None) or (loss_cropping is None):
@@ -156,6 +168,19 @@ def find_closest_number_divisible_by_m(n, m, answer_type="lower"):
     raise ValueError(f"answer_type should be lower/higher/closer, got {answer_type}")
 
 
+def build_binary_structure(connectivity, n_dims, shape=None):
+    """Euclidean ball structuring element (reference utils.py:947-958)."""
+    from scipy.ndimage import distance_transform_edt
+
+    if shape is None:
+        shape = [connectivity * 2 + 1] * n_dims
+    else:
+        shape = reformat_to_list(shape, length=n_dims)
+    dist = np.ones(shape)
+    dist[tuple(int(s / 2) for s in shape)] = 0
+    return (distance_transform_edt(dist) <= connectivity) * 1
+
+
 class LoopInfo:
     """Progress printer with ETA (reference utils.py:835-891 semantics)."""
 
@@ -224,3 +249,106 @@ def draw_value_from_distribution(hyperparameter, size=1, distribution="uniform",
     if positive_only:
         value = np.maximum(value, 0)
     return value
+
+
+def write_pickle(filepath, obj):
+    """(reference utils.py:296-301)"""
+    import pickle
+
+    with open(filepath, "wb") as f:
+        pickle.dump(obj, f)
+
+
+def read_pickle(filepath):
+    """(reference utils.py:304-308)"""
+    import pickle
+
+    with open(filepath, "rb") as f:
+        return pickle.load(f)
+
+
+def create_affine_transformation_matrix(n_dims, scaling=None, rotation=None,
+                                        shearing=None, translation=None):
+    """Numpy twin of the traced affine sampler: compose a (n+1, n+1) matrix
+    from explicit parameter values (reference utils.py:620-672).
+    T = Shear @ Scale @ Rot with a translation column; angles in degrees."""
+    trans_scaling = np.eye(n_dims + 1)
+    trans_shearing = np.eye(n_dims + 1)
+    trans_translation = np.eye(n_dims + 1)
+
+    if scaling is not None:
+        trans_scaling[np.arange(n_dims), np.arange(n_dims)] = scaling
+    if shearing is not None:
+        shearing_index = np.ones((n_dims + 1, n_dims + 1), dtype=bool)
+        shearing_index[np.eye(n_dims + 1, dtype=bool)] = False
+        shearing_index[-1, :] = False
+        shearing_index[:, -1] = False
+        trans_shearing[shearing_index] = shearing
+    if translation is not None:
+        trans_translation[np.arange(n_dims), n_dims] = translation
+
+    if n_dims == 2:
+        if rotation is None:
+            rotation = np.zeros(1)
+        else:
+            rotation = np.asarray(rotation) * (np.pi / 180)
+        trans_rot = np.eye(n_dims + 1)
+        trans_rot[:2, :2] = [[np.cos(rotation[0]), np.sin(rotation[0])],
+                             [np.sin(rotation[0]) * -1, np.cos(rotation[0])]]
+        return trans_translation @ trans_shearing @ trans_scaling @ trans_rot
+
+    if rotation is None:
+        rotation = np.zeros(n_dims)
+    else:
+        rotation = np.asarray(reformat_to_list(rotation, length=n_dims)) * (np.pi / 180)
+    rx = np.eye(n_dims + 1)
+    rx[1:3, 1:3] = [[np.cos(rotation[0]), np.sin(rotation[0])],
+                    [-np.sin(rotation[0]), np.cos(rotation[0])]]
+    ry = np.eye(n_dims + 1)
+    ry[:3, :3] = [[np.cos(rotation[1]), 0, -np.sin(rotation[1])],
+                  [0, 1, 0],
+                  [np.sin(rotation[1]), 0, np.cos(rotation[1])]]
+    rz = np.eye(n_dims + 1)
+    rz[:2, :2] = [[np.cos(rotation[2]), np.sin(rotation[2])],
+                  [-np.sin(rotation[2]), np.cos(rotation[2])]]
+    return trans_translation @ trans_shearing @ trans_scaling @ rx @ ry @ rz
+
+
+def build_training_generator(gen, batchsize):
+    """Pair an inputs generator with dummy targets (reference utils.py:917-925).
+
+    The Keras fit_generator API needed a dummy y; the train steps in
+    ``train/`` compute their losses themselves, so this exists for parity and
+    for users porting reference training drivers."""
+    while True:
+        inputs = next(gen)
+        if batchsize > 1:
+            target = np.concatenate([np.zeros((1, 1))] * batchsize, 0)
+        else:
+            target = np.zeros((1, 1))
+        yield inputs, target
+
+
+def write_model_summary(params, filepath="./model_summary.txt", line_length=110):
+    """Write a layer/shape/param-count summary (reference
+    utils.write_model_summary:311-316 analogue) of a ``torch.nn.Module`` (its
+    parameters and buffers, one line per ``name``) or of a flax-style nested
+    dict ``{collection: {layer: {name: array}}}``, as the JAX package's
+    function does.  Returns the total count."""
+    if hasattr(params, "state_dict"):
+        entries = [(name, tuple(t.shape)) for name, t in params.state_dict().items()
+                   if t.dim() > 0]
+    else:
+        entries = [(f"{coll}/{lname}/{pname}", tuple(arr.shape))
+                   for coll, layers in params.items() for lname, ltree in layers.items()
+                   for pname, arr in ltree.items()]
+    lines = []
+    total = 0
+    for name, shape in entries:
+        n = int(np.prod(shape))
+        total += n
+        lines.append(name.ljust(60) + str(shape).ljust(30) + str(n))
+    lines.append(f"Total parameters: {total}")
+    with open(filepath, "w") as f:
+        f.write("\n".join(line[:line_length] for line in lines) + "\n")
+    return total
