@@ -2,7 +2,8 @@
 holds each against its plain PyTorch version (and times the one PyTorch call
 that computes the same function, and the card's bound) at the shapes of the
 port's main paths: the tensor-core H-first-mma, H-fwd-mma and H-wgrad-mma
-in bf16, and the CUDA-core H-first, H-fwd and H-wgrad in float32.  Then it drives each
+in bf16, the split-TF32 tensor-core H-fwd-x3 and H-wgrad-x3 and the CUDA-core
+H-first in float32.  Then it drives each
 path at full width (24 features, 5 levels, seeded random weights and data):
 
 - predict: ``synthsr_tpu_torch.cli.predict.main`` with flip TTA over three
@@ -64,8 +65,8 @@ import torch
 
 KERNEL_BOUND = 1e-2   # max|kernel - plain| / max|plain|, bf16 output (2^-8 rounding)
 HEAD_BOUND = 1e-4     # the same for the f32 head output (sum order only)
-WGRAD_BOUND = 1e-4    # the same for H-wgrad: f32 sums of bf16 products (order only)
-F32_BOUND = 1e-5      # the same for the float32 CUDA-core kernels (order only)
+WGRAD_BOUND = 1e-4    # the same for H-wgrad-mma: f32 sums of bf16 products (order only)
+F32_BOUND = 1e-5      # the same for the float32 kernels (order; split TF32's ~2^-22)
 NET_BOUND = 2e-2      # relative L2, bf16 fast TTA network output vs plain f32
 NET_F32_BOUND = 1e-4  # the same for the float32 fast network (sum order only)
 GRAD_BOUND = 5e-2     # relative L2, one train step's bf16 kernel-path gradient vs plain f32
@@ -94,25 +95,30 @@ ADV_RATIO = 10        # critic updates per generator update (training_ratio)
 ADV_FIRST_RATIO = 10  # first_training_ratio: 100 in the configuration, cut for the time limit
 ADV_CYCLES = 5        # warm 10:1 cycles timed with CUDA events
 # the bound: the larger of the operations over the H100 SXM's peak for their
-# type (dense bf16 on the tensor cores; float32 on the CUDA cores) and the
-# bytes (each input read once, each output written once) over its memory rate
-# (NVIDIA's data sheet, at the full 700 W power limit)
+# type and the bytes (each input read once, each output written once) over its
+# memory rate (NVIDIA's data sheet, at the full 700 W power limit).  bf16:
+# dense on the tensor cores.  float32: the least time for float32-accurate
+# work is split TF32 on the tensor cores, three TF32 products per product at
+# 495 TFLOP/s dense, so 495 / 3 = 165 TFLOP/s (the CUDA cores' float32 FMA
+# peak, 67 TFLOP/s, is below it)
 PEAK_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 SOURCE = "synthsr_tpu_torch/csrc/conv3d_cf.cu"
-WGRAD_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad.cu"
+X3_SOURCE = "synthsr_tpu_torch/csrc/conv3d_fwd_x3.cu"
+WGRAD_X3_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad_x3.cu"
 MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_fwd_mma.cu"
 FIRST_MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_first_mma.cu"
 WGRAD_MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad_mma.cu"
 PALLAS = "synthsr_tpu/ops/conv_pallas.py"
-NO_LAUNCHES = {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0, "wgrad": 0}
+NO_LAUNCHES = {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
+               "wgrad_x3": 0}
 # kernel launches per train step of the shipped net (4 input channels, so no
 # first-conv kernel): 18 forward convs + 17 input gradients (not the first conv's) on
 # H-fwd-mma; 18 weight gradients + 4 for the decoders' second sources on
-# H-wgrad-mma; in float32 the same counts on H-fwd and H-wgrad
+# H-wgrad-mma; in float32 the same counts on H-fwd-x3 and H-wgrad-x3
 TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_mma": 35, "wgrad_mma": 22}
-TRAIN_F32_LAUNCHES = {**NO_LAUNCHES, "fwd": 35, "wgrad": 22}
+TRAIN_F32_LAUNCHES = {**NO_LAUNCHES, "fwd_x3": 35, "wgrad_x3": 22}
 TRAIN_F32_STEPS = 2
 # kernel launches of one critic update: the generator's fake (1 first_mma + 17
 # fwd_mma); the critic's first conv on target and fake (2 first_mma) and its
@@ -127,9 +133,9 @@ ADV_DISC_LAUNCHES = {**NO_LAUNCHES, "first_mma": 5, "fwd_mma": 27, "wgrad_mma": 
 # (1 first_mma) and its dx, 32->1 (1 fwd_mma; the critic is frozen: no wgrad)
 ADV_GEN_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_mma": 35, "wgrad_mma": 22}
 # per 10:1 cycle; the float32 run (one critic and one generator update) takes
-# the same counts on H-first, H-fwd and H-wgrad
+# the same counts on H-first, H-fwd-x3 and H-wgrad-x3
 ADV_LAUNCHES = {k: ADV_RATIO * ADV_DISC_LAUNCHES[k] + ADV_GEN_LAUNCHES[k] for k in NO_LAUNCHES}
-ADV_F32_LAUNCHES = {**NO_LAUNCHES, "first": 7, "fwd": 62, "wgrad": 28}
+ADV_F32_LAUNCHES = {**NO_LAUNCHES, "first": 7, "fwd_x3": 62, "wgrad_x3": 28}
 # per train step at batch 2 with remat "levels" (the default at 2 examples a
 # rank): per example 18 forward convs, run again by the recomputation of the
 # backward pass (every conv sits in a checkpointed level), 17 input gradients
@@ -197,13 +203,22 @@ SHAPES = [
     # the train step's input-gradient convs: flipped, transposed weights, no epilogue
     ("24->72 @128^3 (dx)", "fwd_mma", (24,), 72, (128, 128, 128), "dx", BF16),
     ("48->144 @64^3 (dx)", "fwd_mma", (48,), 144, (64, 64, 64), "dx", BF16),
-    # the CUDA-core kernels on float32 activations: the float32 train step's
-    # 128^3, then the level-0 convs of the float32 predict phase's clinical volume
+    # the float32 kernels (H-first on the CUDA cores, H-fwd-x3 split TF32):
+    # the float32 train step's convs at 128^3 (forward and input gradients,
+    # each level's), then the level-0 convs of the float32 predict phase's
+    # clinical volume
     ("1->24 @128^3 f32", "first", (1,), 24, (128, 128, 128), "bias+elu", F32),
-    ("24->24 @128^3 f32", "fwd", (24,), 24, (128, 128, 128), "bias+elu", F32),
+    ("24->24 @128^3 f32", "fwd_x3", (24,), 24, (128, 128, 128), "bias+elu", F32),
+    ("4->24 @128^3 f32", "fwd_x3", (4,), 24, (128, 128, 128), "bias+elu", F32),
+    ("[24,48]->24 @128^3 f32", "fwd_x3", (24, 48), 24, (128, 128, 128), "bias+elu", F32),
+    ("24->72 @128^3 f32 (dx)", "fwd_x3", (24,), 72, (128, 128, 128), "dx", F32),
+    ("24->24 @128^3 f32 (dx)", "fwd_x3", (24,), 24, (128, 128, 128), "dx", F32),
+    ("48->48 @64^3 f32", "fwd_x3", (48,), 48, (64, 64, 64), "bias+elu", F32),
+    ("48->144 @64^3 f32 (dx)", "fwd_x3", (48,), 144, (64, 64, 64), "dx", F32),
+    ("[192,384]->192 @16^3 f32", "fwd_x3", (192, 384), 192, (16, 16, 16), "bias+elu", F32),
     ("1->24 @192x224x192 f32", "first", (1,), 24, (192, 224, 192), "bias+elu", F32),
-    ("24->24 @192x224x192 f32", "fwd", (24,), 24, (192, 224, 192), "bias+elu", F32),
-    ("[24,48]->24 @192x224x192 f32", "fwd", (24, 48), 24, (192, 224, 192), "bias+elu", F32),
+    ("24->24 @192x224x192 f32", "fwd_x3", (24,), 24, (192, 224, 192), "bias+elu", F32),
+    ("[24,48]->24 @192x224x192 f32", "fwd_x3", (24, 48), 24, (192, 224, 192), "bias+elu", F32),
     # the critic's stride-1 convs (LeakyReLU fused) at 128^3 and the input
     # gradient of its first conv, 32->1 (one n8 tile of output channels); in
     # float32 the 64^3 adversarial run's first two
@@ -218,7 +233,7 @@ SHAPES = [
     ("128->64 @32^3 (dx)", "fwd_mma", (128,), 64, (32, 32, 32), "dx", BF16),
     ("256->128 @16^3 (dx)", "fwd_mma", (256,), 128, (16, 16, 16), "dx", BF16),
     ("1->32 @64^3 f32 leaky", "first", (1,), 32, (64, 64, 64), "bias+leaky", F32),
-    ("32->64 @32^3 f32 leaky", "fwd", (32,), 64, (32, 32, 32), "bias+leaky", F32),
+    ("32->64 @32^3 f32 leaky", "fwd_x3", (32,), 64, (32, 32, 32), "bias+leaky", F32),
 ]
 
 
@@ -251,12 +266,15 @@ TUTORIAL_SHAPES, TUTORIAL_WGRAD_SHAPES = tutorial_shapes()
 SHAPES += TUTORIAL_SHAPES
 TIMED = {"first_mma": "1->24 @256^3", "first": "1->24 @128^3 f32",
          "fwd_mma": "[24,48]->24 @256^3",
-         "wgrad_mma": "(24,24) @128^3", "fwd": "24->24 @128^3 f32", "wgrad": "(24,24) @64^3 f32"}
+         "wgrad_mma": "(24,24) @128^3", "fwd_x3": "24->24 @128^3 f32",
+         "wgrad_x3": "(24,24) @64^3 f32"}
 
-# H-wgrad-mma at the train step's weight-gradient shapes, then H-wgrad on
-# float32: (ci, co, spatial, dtype)
-WGRAD_SHAPES = [(4, 24, 128, BF16), (24, 24, 128, BF16), (48, 24, 128, BF16), (48, 48, 64, BF16),
-                (96, 48, 64, BF16), (192, 96, 32, BF16), (384, 384, 8, BF16), (24, 24, 64, F32),
+# H-wgrad-mma at the train step's weight-gradient shapes, then H-wgrad-x3 at
+# the same and at the earlier float32 row's (24,24) @64^3: (ci, co, spatial, dtype)
+TRAIN_WGRAD = [(4, 24, 128), (24, 24, 128), (48, 24, 128), (48, 48, 64), (96, 48, 64),
+               (192, 96, 32), (384, 384, 8)]
+WGRAD_SHAPES = [(*s, BF16) for s in TRAIN_WGRAD] + [(*s, F32) for s in TRAIN_WGRAD] + [
+                (24, 24, 64, F32),
                 # the critic's: its first conv, a trunk conv's shape, and the
                 # weight gradients of the penalty's four transposed convs (the
                 # only ones it launches: the trunk convs get none from the penalty,
@@ -276,7 +294,7 @@ LARGE_FOV = ("head_neck_ct.nii", (180, 250, 500), (1.0, 1.0, 1.0))
 HYPERFINE = [((128, 160, 32), 0.0), ((128, 160, 32), 10.0)]
 PREDICT_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_mma": 34}   # per volume, flip TTA
 HYPERFINE_LAUNCHES = {**NO_LAUNCHES, "first_mma": 1, "fwd_mma": 17}  # per pair, one forward
-PREDICT_F32_LAUNCHES = {**NO_LAUNCHES, "first": 2, "fwd": 34}  # per volume, float32 compute
+PREDICT_F32_LAUNCHES = {**NO_LAUNCHES, "first": 2, "fwd_x3": 34}  # per volume, float32 compute
 
 
 def ptxas_summary(log):
@@ -286,7 +304,7 @@ def ptxas_summary(log):
 
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"entry function '\w*?\d+(conv3d_[a-z_]+?_kernel)(I\w*?EE)?", line)
+        m = re.search(r"entry function '\w*?\d+(conv3d_[a-z0-9_]+?_kernel)(I\w*?EE)?", line)
         if m:
             targs = m.group(2) or ""
             args = (["bf16"] if "bfloat16" in targs else ["f32"] if targs.startswith("If") else [])
@@ -330,32 +348,41 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def check_kernels(conv_cf, gen):
-    """Each kernel against conv3d_cf_reference on the same bf16 (or float32)
-    inputs."""
+def kernel_inputs(conv_cf, gen, cins, cout, spatial, fused, dtype):
+    """The ``conv3d_cf`` arguments of one SHAPES row, drawn from ``gen`` on the
+    card: the sources, the weights (packed, or an input gradient's flipped,
+    transposed ones), bias, activation, ``post`` and ``head``."""
     dev = torch.device("cuda")
-    results = []
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, device=dev, generator=gen) * scale
 
+    cin = sum(cins)
+    srcs = [randn(c, *spatial).to(dtype) for c in cins]
+    if fused == "dx":
+        w = randn(3, 3, 3, cout, cin, scale=(2 / (27 * cin)) ** 0.5)
+        kw = dict(x=srcs[0], w=torch.flip(w, (0, 1, 2)).transpose(3, 4))
+    else:
+        kw = dict(x=srcs if len(srcs) > 1 else srcs[0],
+                  w=conv_cf.pack_conv(randn(3, 3, 3, cin, cout, scale=(2 / (27 * cin)) ** 0.5),
+                                      dtype, cins),
+                  bias=randn(cout, scale=0.1),
+                  activation="leaky" if "leaky" in fused else "elu")
+    if "post" in fused:
+        kw["post"] = torch.stack([torch.rand(cout, device=dev, generator=gen) * 0.4 + 0.8,
+                                  randn(cout, scale=0.1)])
+    if "head" in fused:
+        kw["head"] = (randn(cout, scale=cout ** -0.5), torch.tensor(0.25, device=dev))
+    return kw
+
+
+def check_kernels(conv_cf, gen):
+    """Each kernel against conv3d_cf_reference on the same bf16 (or float32)
+    inputs."""
+    results = []
     for name, kernel, cins, cout, spatial, fused, dtype in SHAPES:
         cin = sum(cins)
-        srcs = [randn(c, *spatial).to(dtype) for c in cins]
-        if fused == "dx":
-            w = randn(3, 3, 3, cout, cin, scale=(2 / (27 * cin)) ** 0.5)
-            kw = dict(x=srcs[0], w=torch.flip(w, (0, 1, 2)).transpose(3, 4))
-        else:
-            kw = dict(x=srcs if len(srcs) > 1 else srcs[0],
-                      w=conv_cf.pack_conv(randn(3, 3, 3, cin, cout, scale=(2 / (27 * cin)) ** 0.5),
-                                          dtype, cins),
-                      bias=randn(cout, scale=0.1),
-                      activation="leaky" if "leaky" in fused else "elu")
-        if "post" in fused:
-            kw["post"] = torch.stack([torch.rand(cout, device=dev, generator=gen) * 0.4 + 0.8,
-                                      randn(cout, scale=0.1)])
-        if "head" in fused:
-            kw["head"] = (randn(cout, scale=cout ** -0.5), torch.tensor(0.25, device=dev))
+        kw = kernel_inputs(conv_cf, gen, cins, cout, spatial, fused, dtype)
         lib = library_conv(conv_cf, kw)
         before = dict(conv_cf.LAUNCHES)
         got = conv_cf.conv3d_cf(**kw)
@@ -386,7 +413,7 @@ def check_kernels(conv_cf, gen):
                             max_abs_err=err,
                             rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound_ms, bound_by=bound_by))
-        del srcs, kw, got, want, lib
+        del kw, got, want, lib
         torch.cuda.empty_cache()
     return results
 
@@ -406,13 +433,13 @@ def library_conv(conv_cf, kw):
 
 
 def check_wgrad(conv_cf, gen):
-    """H-wgrad-mma (bf16) and H-wgrad (float32) against
+    """H-wgrad-mma (bf16) and H-wgrad-x3 (float32) against
     conv3d_cf_wgrad_reference (float32 conv3d_weight, TF32 off) on the same
     inputs, and two calls bit-equal."""
     dev = torch.device("cuda")
     results = []
     for ci, co, n, dtype in WGRAD_SHAPES:
-        kernel = "wgrad_mma" if dtype == BF16 else "wgrad"
+        kernel = "wgrad_mma" if dtype == BF16 else "wgrad_x3"
         tol = WGRAD_BOUND if dtype == BF16 else F32_BOUND
         name = f"({ci},{co}) @{n}^3" + (" f32" if dtype == F32 else "")
         x = torch.randn(ci, n, n, n, device=dev, generator=gen).to(dtype)
@@ -540,7 +567,7 @@ def train_phase(conv_cf, root):
                    epoch_step_s=epoch_step_s, h5_exported=h5)
     summary.update(gradient_check(resumed["model"], root))
 
-    phase(f"main path: train in float32 ({TRAIN_F32_STEPS} steps, the CUDA-core kernels)")
+    phase(f"main path: train in float32 ({TRAIN_F32_STEPS} steps, H-fwd-x3 and H-wgrad-x3)")
     f32_dir = os.path.join(root, "model_f32")
     conv_cf.reset_launch_counts()
     t0 = time.perf_counter()
@@ -775,7 +802,8 @@ def adversarial_phase(conv_cf, root):
                    h5_exported=h5)
     summary.update(adversarial_checks(conv_cf, adv, resumed, root, pm, ps))
 
-    phase("main path: adversarial in float32 (1 step, ratio 1, 64^3: H-first and H-fwd)")
+    phase("main path: adversarial in float32 (1 step, ratio 1, 64^3: H-first, H-fwd-x3, "
+          "H-wgrad-x3)")
     conv_cf.reset_launch_counts()
     t0 = time.perf_counter()
     f32 = adv.training(*args[:2], os.path.join(root, "adv_f32"), *args[3:], epochs=1,
@@ -982,7 +1010,7 @@ def odd_size_critic_check(conv_cf, adv):
     (the 24^3 output of a 3-level generator: 24 -> 12 -> 6 -> 3 -> 2), a
     32-filter 4-level critic on seeded random weights and inputs: scores, the
     penalty's input gradient and its parameter gradient against the plain
-    critic by double autograd, in float32 (H-first / H-fwd, NET_F32_BOUND:
+    critic by double autograd, in float32 (H-first / H-fwd-x3, NET_F32_BOUND:
     sum order only), and in bf16 (H-first-mma / H-fwd-mma) the scores and the
     penalty by NET_BOUND against plain float32.  The bf16 gradients are
     printed, not bounded: on these random weights they sit near 0.1-0.15
@@ -1012,7 +1040,7 @@ def odd_size_critic_check(conv_cf, adv):
     flat = lambda gs: torch.cat([g.reshape(-1) for g in gs])  # noqa: E731
     rl2 = lambda a, b: float((a.float() - b).norm() / b.norm())  # noqa: E731
     out = {}
-    for dtype, kernels in ((torch.float32, ("first", "fwd")),
+    for dtype, kernels in ((torch.float32, ("first", "fwd_x3")),
                            (torch.bfloat16, ("first_mma", "fwd_mma"))):
         critic = Discriminator3D(spatial, compute_dtype=dtype).to(dev)
         critic.load_state_dict(plain.state_dict())
@@ -1651,8 +1679,8 @@ def tutorials_phase(conv_cf, root):
     process (``SYNTHSR_SMOKE=1``, ``SYNTHSR_DEVICE=cuda``, seeded synthetic
     96^3 label maps and priors), within TUTORIAL_LIMIT_S.  Each must write its
     outputs.  The training tutorials' conv shapes are held against the plain
-    versions in "kernels vs plain" and "H-wgrad vs plain" (TUTORIAL_SHAPES,
-    TUTORIAL_WGRAD_SHAPES)."""
+    versions in "kernels vs plain" and "H-wgrad-mma and H-wgrad-x3 vs plain"
+    (TUTORIAL_SHAPES, TUTORIAL_WGRAD_SHAPES)."""
     import importlib
 
     data = os.path.join(root, "tutorial_data")
@@ -1722,9 +1750,9 @@ def profile_predict_volume(predictor, vol, aff):
 
 def predict_f32_phase(predict, conv_cf, weights, clinical):
     """``Predictor(compute_dtype="float32").predict_volume`` on the clinical
-    volume: the float32 path of the CUDA-core kernels (H-first, H-fwd), and
+    volume: the float32 path of H-first and H-fwd-x3, and
     its fast network against the plain float32 forward."""
-    phase("main path: predict in float32 (the CUDA-core kernels, clinical volume)")
+    phase("main path: predict in float32 (H-first, H-fwd-x3; clinical volume)")
     _, vol, aff, shape, zooms = clinical
     f32 = predict.Predictor(model_path=weights, compute_dtype="float32")
     conv_cf.reset_launch_counts()
@@ -1738,7 +1766,7 @@ def predict_f32_phase(predict, conv_cf, weights, clinical):
     require(pred.shape == want and np.all(np.isfinite(pred)), (pred.shape, want))
     require(pred.min() >= 0 and pred.max() <= 128, "range")
     x, _, _ = f32.prepare(vol, aff)
-    # the float32 rows of SHAPES hold H-first and H-fwd at this padded shape
+    # the float32 rows of SHAPES hold H-first and H-fwd-x3 at this padded shape
     require(tuple(x.shape[2:]) == (192, 224, 192), tuple(x.shape[2:]))
     with torch.no_grad():
         fast = f32.network(x)
@@ -1929,7 +1957,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = check_kernels(conv_cf, gen)
 
-    phase("H-wgrad vs plain")
+    phase("H-wgrad-mma and H-wgrad-x3 vs plain")
     checks += check_wgrad(conv_cf, gen)
 
     phase("main path: predict")
@@ -2051,8 +2079,8 @@ def main():
             ("first", SOURCE, f"{PALLAS}:569", []),
             ("fwd_mma", MMA_SOURCE, f"{PALLAS}:270", fwd_also),
             ("wgrad_mma", WGRAD_MMA_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"]),
-            ("fwd", SOURCE, f"{PALLAS}:270", fwd_also),
-            ("wgrad", WGRAD_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"])):
+            ("fwd_x3", X3_SOURCE, f"{PALLAS}:270", fwd_also),
+            ("wgrad_x3", WGRAD_X3_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"])):
         mine = [c for c in checks if c["kernel"] == kernel]
         timed = next(c for c in mine if c["shape"] == TIMED[kernel])
         kernels.append(dict(

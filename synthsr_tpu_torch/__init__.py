@@ -17,13 +17,15 @@ Modules, each beside its JAX counterpart of the same path unless named:
   entries): ``conv3d_cf`` / ``conv3d_cf_wgrad`` dispatch, launch counts and
   their plain versions;
 - ``csrc/``: CUDA C++ for sm_90a.  ``conv3d_fwd_mma.cu`` (H-fwd-mma, bf16
-  on the tensor cores) and ``conv3d_cf.cu``'s H-fwd (float32) replace
-  ``_plane_kernel``, ``conv3d_cf_grouped``, ``_flat_kernel`` and ``_kernel``;
+  on the tensor cores) and ``conv3d_fwd_x3.cu`` (H-fwd-x3, float32 on the
+  tensor cores by split TF32) replace ``_plane_kernel``,
+  ``conv3d_cf_grouped``, ``_flat_kernel`` and ``_kernel``;
   ``conv3d_first_mma.cu`` (H-first-mma, bf16 on the tensor cores) and
   ``conv3d_cf.cu``'s H-first (float32) replace ``_first_kernel``;
-  ``conv3d_wgrad_mma.cu`` (H-wgrad-mma, bf16) and ``conv3d_wgrad.cu``
-  (H-wgrad, float32) replace ``_wgrad_kernel`` and ``_wgrad_flat_kernel``;
-  ``mma_common.cuh`` holds what the mma kernels share;
+  ``conv3d_wgrad_mma.cu`` (H-wgrad-mma, bf16) and ``conv3d_wgrad_x3.cu``
+  (H-wgrad-x3, float32, split TF32) replace ``_wgrad_kernel`` and
+  ``_wgrad_flat_kernel``, with ``conv3d_wgrad.cu``'s reduce;
+  ``mma_common.cuh`` holds what the tensor-core kernels share;
 - ``ops/cuda_build.py`` (no counterpart: Pallas compiles in ``jit``): nvcc
   build on first use, ctypes load;
 - ``ops/conv_train.py``, ``ops/linops.py``, ``ops/blur.py``,

@@ -3,8 +3,8 @@
 // K2 (_plane_kernel, synthsr_tpu/ops/conv_pallas.py:270), K3
 // (conv3d_cf_grouped :920), K4 (_flat_kernel :1297) and K5 (_kernel :127),
 // which multiply bf16 operands into float32 sums (conv_pallas.py:471-480) as
-// mma.sync does here.  Float32 activations keep the CUDA-core H-fwd of
-// conv3d_cf.cu.  The launcher runs on the stream it is given, allocates
+// mma.sync does here.  Float32 activations run on H-fwd-x3
+// (conv3d_fwd_x3.cu).  The launcher runs on the stream it is given, allocates
 // nothing and returns cudaGetLastError() (0 = launched).
 //
 // Bound: 2*27*C_in FLOPs per output value against 2 bytes per input value,

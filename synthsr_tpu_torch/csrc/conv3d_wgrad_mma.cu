@@ -3,8 +3,8 @@
 // (sm_90a).  Replaces the TPU kernels K6 (_wgrad_kernel,
 // synthsr_tpu/ops/conv_pallas.py:1090) and K7 (_wgrad_flat_kernel, :1705),
 // which multiply bf16 operands into float32 sums (conv_pallas.py:1187-1191)
-// as mma.sync does here.  Float32 operands keep the CUDA-core H-wgrad of
-// conv3d_wgrad.cu.
+// as mma.sync does here.  Float32 operands run on H-wgrad-x3
+// (conv3d_wgrad_x3.cu).
 //
 //   dw[tap, ci, co] = sum_vox x[ci, vox + tap] * g[co, vox]
 //

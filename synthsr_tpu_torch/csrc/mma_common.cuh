@@ -1,9 +1,22 @@
 // Building blocks shared by the tensor-core kernels H-fwd-mma
-// (conv3d_fwd_mma.cu) and H-wgrad-mma (conv3d_wgrad_mma.cu), sm_90a.
+// (conv3d_fwd_mma.cu), H-wgrad-mma (conv3d_wgrad_mma.cu), H-fwd-x3
+// (conv3d_fwd_x3.cu) and H-wgrad-x3 (conv3d_wgrad_x3.cu), sm_90a.
 //
 // - PTX wrappers: ldmatrix (.x4, .x4.trans), ld.shared.v2, the bf16 tensor-core
-//   product mma.sync.m16n8k16 with float32 sums, cp.async with zero fill and
-//   its commit / wait.
+//   product mma.sync.m16n8k16 and the tf32 one mma.sync.m16n8k8, both with
+//   float32 sums, cp.async (16 and 4 bytes) with zero fill and its commit /
+//   wait.
+// - Split TF32 ("3xTF32") for the float32 kernels: a float32 value a is
+//   big = tf32(a) (cvt.rna: round to nearest, ties away from zero) plus
+//   small = tf32(a - big); the subtraction is exact in float32.  A product
+//   a*b is taken as small_a*big_b + big_a*small_b + big_a*big_b on the tensor
+//   cores; the dropped small*small term and the rounding of small are each
+//   about 2^-22 relative, so the sums keep float32 accuracy at a third of the
+//   TF32 rate.  The tensor cores add into their accumulator with truncation
+//   (round toward zero), so a chain of mma over all of K biases the sum
+//   (1.5e-5 relative at 72 input channels on the card, 5e-6 at 24, in the
+//   first card runs of H-fwd-x3): the kernels chain a few dozen products
+//   into a partial sum, then add it to their float32 sums with a rounding add.
 // - The channels-last halo tile.  Both kernels read a 3x3x3 neighbourhood of a
 //   channels-first (C, D, H, W) bf16 volume.  In a channels-first row a
 //   dx = +-1 tap is a 2-byte shift, which neither ldmatrix nor cp.async can
@@ -69,6 +82,42 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+
+// d += a (16x8, row-major) * b (8x8, column-major), tf32 operands (the low 13
+// bits of each register zero), f32 sums.  a: (row g, col tq), (g + 8, tq),
+// (g, tq + 4), (g + 8, tq + 4); b: (row tq, col g), (tq + 4, g); d as mma_bf16's.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// The split of split TF32: v = big + small, each a tf32 value.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = to_tf32(v);
+  small = to_tf32(v - __uint_as_float(big));
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+
+// Waits until at most N of this thread's committed cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

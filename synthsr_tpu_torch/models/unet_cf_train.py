@@ -6,7 +6,7 @@ Every 3³ conv, at every level, goes through the differentiable
 forward + backward of the shipped net in bf16 is 18 H-fwd-mma forward
 launches, 17 H-fwd-mma input-gradient launches (the first conv's input needs
 none) and 22 H-wgrad-mma launches (18 convs, plus one per second decoder
-source); in float32 the same counts on H-fwd and H-wgrad.  Convs run per
+source); in float32 the same counts on H-fwd-x3 and H-wgrad-x3.  Convs run per
 example (the kernels are batch-free); BatchNorm runs batch-synchronously over
 the examples with flax's train-mode math (float32 fast-variance batch
 statistics, momentum 0.99, eps 1e-3; :func:`~.unet.bn_batch_stats`), and

@@ -25,9 +25,19 @@ first-conv gate (one source, C_in <= 2, no ``accum``, no ``head``; K1's
 shapes) launches **H-first-mma** for bf16 with C_out <= 32 (tensor cores,
 ``csrc/conv3d_first_mma.cu``) or **H-first** for float32 (CUDA cores,
 ``csrc/conv3d_cf.cu``), both replacing K1; any other conv launches
-**H-fwd-mma** for bf16 (tensor cores, ``csrc/conv3d_fwd_mma.cu``; replaces
-K2, K3, K4 and K5) or **H-fwd** for float32 (CUDA cores,
-``csrc/conv3d_cf.cu``); any other device raises.
+**H-fwd-mma** for bf16 (tensor cores, ``csrc/conv3d_fwd_mma.cu``) or
+**H-fwd-x3** for float32 (tensor cores, ``csrc/conv3d_fwd_x3.cu``), both
+replacing K2, K3, K4 and K5; any other device raises.
+
+Split TF32 ("3xTF32") is how the float32 kernels H-fwd-x3 and H-wgrad-x3
+keep float32 accuracy on the tensor cores: each float32 operand ``a`` is
+``big = tf32(a)`` (round to nearest, ties away from zero) plus ``small =
+tf32(a - big)``, and each product is ``small_a·big_b + big_a·small_b +
+big_a·big_b`` summed in float32; the dropped ``small·small`` term and the
+rounding of ``small`` are each about 2^-22 relative.  Plain TF32 (``big·big``
+alone) keeps about three decimal digits.  :func:`pack_conv` splits the
+weights once per weight set (:func:`_x3_fragments`); the kernels split the
+activations as they load them.
 
 K5 (``_kernel``, ``synthsr_tpu/ops/conv_pallas.py:127``, entry ``conv3d_cf``
 :990) is the TPU's blocked conv for the shapes the plane and folded-plane
@@ -35,18 +45,18 @@ layouts reject: W % 128 == 0, H % 16 == 0, C_in <= 96 and C_in·W <= 96·256
 (``synthsr_tpu/models/unet_cf.py:140-159``).  On the predict path these are
 the level-0 convs of a large field of view, e.g. 24->24 at 192x256x512 or
 256x384x384 and, unfused, 72->24 at 256x512x256, whose planes (cin·H·W over
-24·256²) pass the other kernels' caps.  H-fwd takes those shapes as it takes
-any other (64-bit offsets; grid (W/32·H/8, D, C_out tiles)), with bias and
-activation fused at every C_in, so no dispatch here depends on them.  H-fwd-mma
-tiles the same way.
+24·256²) pass the other kernels' caps.  H-fwd-mma and H-fwd-x3 take those
+shapes as they take any other (64-bit offsets; grid (W/32·H/8, D, C_out
+tiles)), with bias and activation fused at every C_in, so no dispatch here
+depends on them.
 
 ``conv3d_cf_wgrad(x, g)`` is the training backward's weight gradient,
 ``dw[dz, dy, dx, ci, co] = sum x[ci, z+dz-1, h+dy-1, w+dx-1] g[co, z, h, w]``
 (zero padding), (3, 3, 3, ci, co) float32, with ``g`` rounded to ``x.dtype``
 first as K6 does (conv_pallas.py:1230).  The same dispatch: the plain
 :func:`conv3d_cf_wgrad_reference` on a CPU tensor; on a CUDA tensor
-**H-wgrad-mma** for bf16 (``csrc/conv3d_wgrad_mma.cu``) or **H-wgrad** for
-float32 (``csrc/conv3d_wgrad.cu``), both replacing K6 and K7.
+**H-wgrad-mma** for bf16 (``csrc/conv3d_wgrad_mma.cu``) or **H-wgrad-x3** for
+float32 (``csrc/conv3d_wgrad_x3.cu``, split TF32), both replacing K6 and K7.
 
 ``LAUNCHES`` counts kernel launches per kernel, under its own key, and
 nothing else.
@@ -61,15 +71,14 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-LAUNCHES = {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0, "wgrad": 0}
+LAUNCHES = {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
+            "wgrad_x3": 0}
 
-FWD_CHUNK = 8  # input channels per H-fwd chunk (FWD_CK in csrc/conv3d_cf.cu)
 MMA_STEPS = 14  # k16 steps per 8-channel group of H-fwd-mma (FM_STEPS in csrc/conv3d_fwd_mma.cu)
 MMA_TILE = (8, 32)  # H-fwd-mma output tile (H, W) of one plane
 WGRAD_MMA_TILE = (4, 32)  # H-wgrad-mma item (H, W) of one plane
 WGRAD_MMA_BLOCKS_PER_SM = 4  # 96-thread blocks H-wgrad-mma aims to keep on each SM
-WGRAD_CHUNK = 8  # input channels per H-wgrad block (WG_CK in csrc/conv3d_wgrad.cu)
-WGRAD_MAX_TILE = 128  # voxels per H-wgrad tile (WG_MAXVOX)
+WGRAD_X3_BLOCKS_PER_SM = 2  # the same for H-wgrad-x3 (its shared memory holds two)
 # H-first-mma: K (27·C_in taps + the bias's ones column) padded to k16 steps,
 # and the most output channels (two m16 tiles); conv3d_first_mma.cu agrees
 FIRST_MMA_KPAD = {1: 32, 2: 64}
@@ -85,10 +94,8 @@ def build_kernels() -> float:
     global _lib
     path, seconds = cuda_build.build()
     lib = cuda_build.load(path)
-    if lib.conv3d_fwd_chunk() != FWD_CHUNK or lib.conv3d_fwd_mma_steps() != MMA_STEPS:
-        raise RuntimeError("csrc/conv3d_cf.cu, csrc/conv3d_fwd_mma.cu and conv_cf disagree")
-    if (lib.conv3d_wgrad_chunk(), lib.conv3d_wgrad_max_tile()) != (WGRAD_CHUNK, WGRAD_MAX_TILE):
-        raise RuntimeError("csrc/conv3d_wgrad.cu and conv_cf.WGRAD_* disagree")
+    if lib.conv3d_fwd_mma_steps() != MMA_STEPS:
+        raise RuntimeError("csrc/conv3d_fwd_mma.cu and conv_cf.MMA_STEPS disagree")
     if ({c: lib.conv3d_first_mma_kpad(c) for c in FIRST_MMA_KPAD} != FIRST_MMA_KPAD
             or lib.conv3d_first_mma_max_cout() != FIRST_MMA_MAX_COUT):
         raise RuntimeError("csrc/conv3d_first_mma.cu and conv_cf.FIRST_MMA_* disagree")
@@ -109,8 +116,9 @@ def reset_launch_counts():
 
 
 def cout_groups(cout: int) -> int:
-    """Output channels per H-fwd block, in groups of 8: 24 wherever it
-    divides C_out (every U-Net width: 24·2^l), else up to 32."""
+    """Output channels per H-fwd-x3 block (and H-first's ``packed`` cout
+    tile), in groups of 8: 24 wherever it divides C_out (every U-Net width:
+    24·2^l), else up to 32."""
     if cout % 24 == 0:
         return 3
     return min(4, -(-cout // 8))
@@ -137,11 +145,12 @@ class PackedConv:
     """A conv weight made ready once for the plain version and the kernels.
 
     ``w``: DHWIO float32, values rounded to ``dtype`` (the plain version's
-    operand).  ``packed``: (cin_pad, 27, cout_pad) float32, zero-padded to
-    the CUDA-core kernels' channel chunk and cout tile (H-first, H-fwd);
-    made for float32, else None.  ``frags``: the bf16 B fragments of
-    H-fwd-mma (see :func:`_mma_fragments`), for bf16, else None; ``splits``
-    are the source channel counts they were laid out for.  ``first_frags``:
+    operand).  ``packed``: (cin, 27, cout_pad) float32, zero-padded to the
+    cout tile, H-first's layout; made for float32 with C_in <= 2, else
+    None.  ``frags``: the B fragments of H-fwd-mma (bf16, see
+    :func:`_mma_fragments`) or H-fwd-x3 (float32, split TF32, see
+    :func:`_x3_fragments`); ``splits`` are the source channel counts they
+    were laid out for.  ``first_frags``:
     the bf16 A fragments of H-first-mma (see :func:`_first_mma_fragments`),
     for bf16 with C_in <= 2 and C_out <= 32, else None."""
     w: torch.Tensor
@@ -173,15 +182,57 @@ def _mma_fragments(wr: torch.Tensor, splits, ng: int) -> torch.Tensor:
     cout = wr.shape[4]
     nt = 8 * ng
     n_tiles = -(-cout // nt)
+    wv = F.pad(_source_padded(wr, splits), (0, n_tiles * nt - cout, 0, 0, 0, 1))
+    groups = wv.shape[1] // 8
+    v = wv.reshape(MMA_STEPS, 2, groups, 4, 2, n_tiles, ng, 8)  # s, half, group, tq, e, tile, j, g
+    return v.permute(5, 2, 0, 6, 7, 3, 1, 4).to(torch.bfloat16).contiguous()
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 exactly as ``cvt.rna.tf32.f32`` does: round the
+    magnitude to 10 mantissa bits, ties away from zero (add half of the
+    dropped part, 0x1000, to the magnitude bits, then clear the low 13)."""
+    bits = t.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of split TF32: ``big = tf32(t)``, ``small = tf32(t - big)``
+    (the subtraction is exact in float32)."""
+    big = tf32_round(t)
+    return big, tf32_round(t.to(torch.float32) - big)
+
+
+def _source_padded(wr: torch.Tensor, splits) -> torch.Tensor:
+    """(27, C_in padded, C_out): each source's channels padded to a multiple
+    of 8 on its own."""
+    cout = wr.shape[4]
     w27 = wr.reshape(27, -1, cout)
     parts, off = [], 0
     for c in splits:
         parts.append(F.pad(w27[:, off:off + c], (0, 0, 0, -c % 8)))
         off += c
-    wv = F.pad(torch.cat(parts, 1), (0, n_tiles * nt - cout, 0, 0, 0, 1))
+    return torch.cat(parts, 1)
+
+
+def _x3_fragments(wr: torch.Tensor, splits, ng: int) -> torch.Tensor:
+    """H-fwd-x3's B operand, split TF32: (n_tiles, groups, 27, ng, 8 g, 4 tq,
+    2 part, 2 half) float32, i.e. (n_tile, group, tap, n8 tile, lane) x 4
+    values in the order the kernel's lanes read them.
+
+    K runs over 8-channel groups (each source padded to a multiple of 8 on
+    its own) and within a group over the 27 taps, one m16n8k8 step each.
+    Lane 4g + tq of n8 tile j holds the B fragment of output channel
+    tile*8*ng + 8j + g: part 0 (big) then part 1 (small) of channels 8k + tq
+    (half 0, b0) and 8k + tq + 4 (half 1, b1)."""
+    cout = wr.shape[4]
+    nt = 8 * ng
+    n_tiles = -(-cout // nt)
+    wv = F.pad(_source_padded(wr, splits), (0, n_tiles * nt - cout))
     groups = wv.shape[1] // 8
-    v = wv.reshape(MMA_STEPS, 2, groups, 4, 2, n_tiles, ng, 8)  # s, half, group, tq, e, tile, j, g
-    return v.permute(5, 2, 0, 6, 7, 3, 1, 4).to(torch.bfloat16).contiguous()
+    v = wv.reshape(27, groups, 2, 4, n_tiles, ng, 8)  # tap, group, half, tq, tile, j, g
+    parts = [p.permute(4, 1, 0, 5, 6, 3, 2) for p in split_tf32(v)]
+    return torch.stack(parts, -2).contiguous()
 
 
 def _first_mma_fragments(wr: torch.Tensor) -> torch.Tensor:
@@ -218,15 +269,13 @@ def pack_conv(w: torch.Tensor, dtype: torch.dtype, splits=None) -> PackedConv:
         raise ValueError(f"source channels {splits} do not add up to the kernel's {cin}")
     wr = w.detach().to(dtype).to(torch.float32).contiguous()
     bf16 = dtype == torch.bfloat16
-    packed = None
-    if not bf16:
-        ng = cout_groups(cout)
-        cin_pad = -(-cin // FWD_CHUNK) * FWD_CHUNK
-        cout_pad = -(-cout // (8 * ng)) * (8 * ng)
-        packed = torch.zeros((cin_pad, 27, cout_pad), dtype=torch.float32, device=w.device)
-        packed[:cin, :, :cout] = wr.reshape(27, cin, cout).permute(1, 0, 2)
     ng = mma_groups(cout) if bf16 else cout_groups(cout)
-    frags = _mma_fragments(wr, splits, ng) if bf16 else None
+    packed = None
+    if not bf16 and cin <= 2:
+        cout_pad = -(-cout // (8 * ng)) * (8 * ng)
+        packed = F.pad(wr.reshape(27, cin, cout).permute(1, 0, 2), (0, cout_pad - cout))
+        packed = packed.contiguous()
+    frags = _mma_fragments(wr, splits, ng) if bf16 else _x3_fragments(wr, splits, ng)
     first = None
     if bf16 and cin in FIRST_MMA_KPAD and cout <= FIRST_MMA_MAX_COUT:
         first = _first_mma_fragments(wr)
@@ -377,9 +426,9 @@ def _launch(srcs, w, bias, activation, post, head, accum):
             out = torch.empty((cout, d, h, wd), dtype=dtype, device=dev)
         src1 = srcs[1] if len(srcs) == 2 else None
         c1 = cins[1] if src1 is not None else 0
+        if _split_key(pc.splits) != _split_key(cins):
+            raise ValueError(f"weights packed for sources {pc.splits}, got {tuple(cins)}")
         if dtype == torch.bfloat16:
-            if _split_key(pc.splits) != _split_key(cins):
-                raise ValueError(f"weights packed for sources {pc.splits}, got {tuple(cins)}")
             vec = int(wd % 8 == 0 and _aligned(*srcs, accum, out))
             err = lib.conv3d_fwd_mma_launch(
                 ptr(srcs[0]), cins[0], ptr(src1), c1, d, h, wd, ptr(pc.frags), cout, pc.ng,
@@ -387,11 +436,12 @@ def _launch(srcs, w, bias, activation, post, head, accum):
             _check(lib, err, "H-fwd-mma")
             LAUNCHES["fwd_mma"] += 1
             return out
-        err = lib.conv3d_fwd_launch(
-            ptr(srcs[0]), cins[0], ptr(src1), c1, d, h, wd, ptr(pc.packed), cout,
-            pc.packed.shape[2], pc.ng, ptr(b), ptr(accum), ptr(p), ptr(hd), act, ptr(out), stream)
-        _check(lib, err, "H-fwd")
-        LAUNCHES["fwd"] += 1
+        vec = int(wd % 4 == 0 and _aligned(*srcs, accum, out))
+        err = lib.conv3d_fwd_x3_launch(
+            ptr(srcs[0]), cins[0], ptr(src1), c1, d, h, wd, ptr(pc.frags), cout, pc.ng,
+            ptr(b), ptr(accum), ptr(p), ptr(hd), act, vec, ptr(out), stream)
+        _check(lib, err, "H-fwd-x3")
+        LAUNCHES["fwd_x3"] += 1
         return out
 
 
@@ -422,10 +472,6 @@ def conv3d_cf_wgrad_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw.permute(2, 3, 4, 1, 0).contiguous()
 
 
-def _pow2_ceil(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
-
-
 @dataclass(frozen=True)
 class WgradPlan:
     """A weight-gradient launch: tiles of ``th`` x ``tw`` voxels of one plane,
@@ -439,27 +485,20 @@ class WgradPlan:
 
 def wgrad_plan(ci: int, co: int, d: int, h: int, w: int, n_sm: int,
                dtype: torch.dtype) -> WgradPlan:
-    """The launch shape of H-wgrad-mma (bf16) or H-wgrad (float32).
+    """The launch shape of H-wgrad-mma (bf16) or H-wgrad-x3 (float32).
 
-    H-wgrad-mma: items of 4 x 32 voxels (K = 128 per item), co tiles of 16·mt
-    with mt = 3 where 48 divides C_out, else 2 (1 for C_out <= 16), and
-    enough splits for WGRAD_MMA_BLOCKS_PER_SM blocks per SM, the number its
-    registers and shared memory keep resident, so the card runs one even
-    wave.  H-wgrad: tiles of th x tw <= WGRAD_MAX_TILE voxels, 8 <= tw <= 32;
-    ``cout_groups`` groups of 8 output channels; about eight blocks per SM
-    (registers and shared memory hold six 72-thread blocks per SM; two per
-    SM left the card at 6 TFLOP/s)."""
-    if dtype == torch.bfloat16:
-        th, tw = WGRAD_MMA_TILE
-        co_tile = 48 if co % 48 == 0 else (32 if co > 16 else 16)
-        per_sm = WGRAD_MMA_BLOCKS_PER_SM
-    else:
-        tw = min(32, max(8, _pow2_ceil(w)))
-        th = max(1, min(WGRAD_MAX_TILE // tw, _pow2_ceil(h)))
-        co_tile = 8 * cout_groups(co)
-        per_sm = 8
+    Both: items of 4 x 32 voxels (K = 128 per item), co tiles of 16·mt with
+    mt = 2 (1 for C_out <= 16), or for bf16 mt = 3 where 48 divides C_out
+    (H-wgrad-x3 holds twice the sums in registers: mt <= 2), 8 channels of x
+    per block, and enough splits for the blocks per SM that the kernel's
+    registers and shared memory keep resident (WGRAD_MMA_BLOCKS_PER_SM,
+    WGRAD_X3_BLOCKS_PER_SM), so the card runs one even wave."""
+    th, tw = WGRAD_MMA_TILE
+    bf16 = dtype == torch.bfloat16
+    co_tile = 48 if bf16 and co % 48 == 0 else (32 if co > 16 else 16)
+    per_sm = WGRAD_MMA_BLOCKS_PER_SM if bf16 else WGRAD_X3_BLOCKS_PER_SM
     items = d * -(-w // tw) * -(-h // th)
-    pairs = -(-ci // WGRAD_CHUNK) * -(-co // co_tile)
+    pairs = -(-ci // 8) * -(-co // co_tile)
     n_split = max(1, min(items, -(-per_sm * n_sm // pairs)))
     return WgradPlan(th, tw, co_tile, n_split)
 
@@ -477,24 +516,18 @@ def conv3d_cf_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     co = g.shape[0]
     plan = wgrad_plan(ci, co, d, h, wd,
                       torch.cuda.get_device_properties(dev).multi_processor_count, x.dtype)
-    ci_pad = -(-ci // WGRAD_CHUNK) * WGRAD_CHUNK
+    ci_pad = -(-ci // 8) * 8
     co_pad = -(-co // plan.co_tile) * plan.co_tile
     partial = torch.empty((plan.n_split, 27, ci_pad, co_pad), dtype=torch.float32, device=dev)
     dw = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if x.dtype == torch.bfloat16:
-            vec = int(wd % 8 == 0 and _aligned(x, g))
-            err = lib.conv3d_wgrad_mma_launch(x.data_ptr(), g.data_ptr(), ci, co, d, h, wd,
-                                              plan.co_tile // 16, plan.n_split, vec,
-                                              partial.data_ptr(), dw.data_ptr(), stream)
-            _check(lib, err, "H-wgrad-mma")
-            LAUNCHES["wgrad_mma"] += 1
-            return dw
-        err = lib.conv3d_wgrad_launch(x.data_ptr(), g.data_ptr(), ci, co, d, h, wd, plan.th,
-                                      plan.tw, plan.co_tile // 8, plan.n_split,
-                                      partial.data_ptr(), dw.data_ptr(), stream)
-    _check(lib, err, "H-wgrad")
-    LAUNCHES["wgrad"] += 1
+        bf16 = x.dtype == torch.bfloat16
+        launch = lib.conv3d_wgrad_mma_launch if bf16 else lib.conv3d_wgrad_x3_launch
+        vec = int(wd % (8 if bf16 else 4) == 0 and _aligned(x, g))
+        err = launch(x.data_ptr(), g.data_ptr(), ci, co, d, h, wd, plan.co_tile // 16,
+                     plan.n_split, vec, partial.data_ptr(), dw.data_ptr(), stream)
+    _check(lib, err, "H-wgrad-mma" if bf16 else "H-wgrad-x3")
+    LAUNCHES["wgrad_mma" if bf16 else "wgrad_x3"] += 1
     return dw

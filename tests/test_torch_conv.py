@@ -124,8 +124,8 @@ def test_cpu_dispatch_is_plain_and_launches_nothing():
     got = conv3d_cf(x, pack_conv(w, torch.float32), activation="elu")
     want = conv3d_cf_reference(x, w, activation="elu")
     assert torch.equal(got, want)
-    assert LAUNCHES == {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0,
-                        "wgrad": 0}
+    assert LAUNCHES == {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
+                        "wgrad_x3": 0}
     with pytest.raises(ValueError):
         conv3d_cf(x.to("meta"), w.to("meta"))
 
@@ -135,8 +135,12 @@ def test_cpu_dispatch_is_plain_and_launches_nothing():
 def test_pack_conv_layout(cin, cout):
     """The kernels' weight layouts, values rounded to the compute dtype.
 
-    float32 (H-fwd, H-first): (cin_pad, 27, cout_pad), tap = kd*9+kh*3+kw,
-    zero padding to the channel chunk and the cout tile.  bf16 (H-fwd-mma):
+    float32 with C_in <= 2 (H-first): (cin, 27, cout_pad), tap =
+    kd*9+kh*3+kw, zero padding to the cout tile.  float32 (H-fwd-x3):
+    the split-TF32 B fragments (n_tiles, groups, 27, ng, g, tq, part, half):
+    part 0 is tf32(w) (round to nearest, ties away), part 1 tf32(w - part 0),
+    lane 4g+tq output channel 8j+g, channels 8k+tq (half 0) and 8k+tq+4
+    (half 1); everything past the weight is zero.  bf16 (H-fwd-mma):
     the B fragments (n_tiles, groups, steps, ng, lanes, 4): unpacked, step s
     of group k holds tap 2s (k 0-7) and tap 2s+1 (k 8-15) of channels
     8k..8k+7, lane 4g+tq output channel 8j+g, k 2tq, 2tq+1, 2tq+8, 2tq+9;
@@ -165,18 +169,37 @@ def test_pack_conv_layout(cin, cout):
                 for k in (28, 29)]))
         else:
             assert pc.first_frags is None
-        if dtype == torch.float32:
+        if dtype == torch.float32 and cin <= 2:
             ng = conv_cf.cout_groups(cout)
-            cin_pad, taps, cout_pad = pc.packed.shape
-            assert taps == 27 and cin_pad % conv_cf.FWD_CHUNK == 0 and cout_pad % (8 * ng) == 0
-            assert cin_pad - cin < conv_cf.FWD_CHUNK and cout_pad - cout < 8 * ng
+            cins, taps, cout_pad = pc.packed.shape
+            assert (cins, taps) == (cin, 27) and cout_pad % (8 * ng) == 0
+            assert cout_pad - cout < 8 * ng and pc.packed.is_contiguous()
             for kd, kh, kw in ((0, 0, 0), (1, 2, 0), (2, 1, 2)):
-                assert torch.equal(pc.packed[:cin, kd * 9 + kh * 3 + kw, :cout], wr[kd, kh, kw])
-            assert not pc.packed[cin:].any() and not pc.packed[:, :, cout:].any()
+                assert torch.equal(pc.packed[:, kd * 9 + kh * 3 + kw, :cout], wr[kd, kh, kw])
+            assert not pc.packed[:, :, cout:].any()
         else:
             assert pc.packed is None
         if dtype == torch.float32:
-            assert pc.frags is None
+            ng = conv_cf.cout_groups(cout)
+            n_tiles, groups = -(-cout // (8 * ng)), -(-cin // 8)
+            f = pc.frags
+            assert f.dtype == torch.float32 and pc.ng == ng
+            assert f.shape == (n_tiles, groups, 27, ng, 8, 4, 2, 2)
+            # (tile, k, tap, j, g, tq, part, half) -> part, taps, channels, cout
+            full = f.permute(6, 2, 1, 7, 5, 0, 3, 4).reshape(2, 27, 8 * groups, 8 * ng * n_tiles)
+            big, small = full[0, :, :cin, :cout], full[1, :, :cin, :cout]
+            w27 = wr.reshape(27, cin, cout)
+            assert torch.equal(big, conv_cf.tf32_round(w27))
+            assert torch.equal(small, conv_cf.tf32_round(w27 - big))
+            assert not (full.view(torch.int32) & 0x1FFF).any()
+            assert not full[:, :, cin:].any() and not full[:, :, :, cout:].any()
+            lane = 4 * 3 + 1  # g = 3, tq = 1: channels 1 and 5 of output channel 8j + 3
+            j = ng - 1
+            got = f[0, 0, 7, j].reshape(32, 4)[lane]
+            want = [w27[7, c, 8 * j + 3] if c < cin and 8 * j + 3 < cout else torch.tensor(0.0)
+                    for c in (1, 5)]
+            want = torch.stack(want)
+            assert torch.equal(got, torch.cat(conv_cf.split_tf32(want)))
             continue
         ng = conv_cf.mma_groups(cout)
         n_tiles, groups = -(-cout // (8 * ng)), -(-cin // 8)
@@ -228,7 +251,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """H-first-mma, H-fwd-mma (bf16), H-first and H-fwd (float32) against
+    """H-first-mma, H-fwd-mma (bf16), H-first and H-fwd-x3 (float32) against
     conv3d_cf_reference on the card, at one small shape per feature: first
     conv (C_in 1 and 2) with and without its epilogue, with post, with 11
     planes (a ragged block of 8), and with C_out = 40 (past H-first-mma's 32:
@@ -252,7 +275,7 @@ def test_kernels_match_plain_on_card():
             return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
         for dtype, tol, kernel, first in ((torch.bfloat16, 1e-2, "fwd_mma", "first_mma"),
-                                          (torch.float32, 1e-5, "fwd", "first")):
+                                          (torch.float32, 1e-5, "fwd_x3", "first")):
             post = r(2, 24)
             for w in (48, 20):
                 cases = [

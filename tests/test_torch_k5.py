@@ -1,7 +1,7 @@
 """K5, the TPU's blocked conv (``_kernel``, synthsr_tpu/ops/conv_pallas.py:127,
-entry ``conv3d_cf`` :990), against the port's conv3d_cf (H-fwd on a card,
-its plain version here), and the large-field-of-view predict path that only
-K5 served on the TPU."""
+entry ``conv3d_cf`` :990), against the port's conv3d_cf (H-fwd-mma or
+H-fwd-x3 on a card, its plain version here), and the large-field-of-view
+predict path that only K5 served on the TPU."""
 
 import jax
 import jax.numpy as jnp

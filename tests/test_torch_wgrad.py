@@ -5,7 +5,7 @@ interpret mode on the same numpy inputs.
 
 On the CPU ``conv3d_cf_wgrad`` is its plain version (float32
 ``conv3d_weight``); the ``cuda``-marked test holds H-wgrad-mma (bf16) and
-H-wgrad (float32) against it on the card.  JAX is imported inside the tests
+H-wgrad-x3 (float32) against it on the card.  JAX is imported inside the tests
 that compare against it, so the ``cuda`` test also runs where JAX is not
 installed.
 """
@@ -58,8 +58,8 @@ def test_wgrad_rounds_g_to_x_dtype_and_dispatches_plain_on_cpu():
     got = conv3d_cf_wgrad(x, g)
     want = conv3d_cf_wgrad_reference(x.float(), g.to(torch.bfloat16).float())
     assert torch.equal(got, want)
-    assert LAUNCHES == {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd": 0,
-                        "wgrad": 0}
+    assert LAUNCHES == {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
+                        "wgrad_x3": 0}
     with pytest.raises(ValueError):
         conv3d_cf_wgrad(x.to("meta"), g.to("meta"))
     with pytest.raises(ValueError):
@@ -70,24 +70,22 @@ def test_wgrad_rounds_g_to_x_dtype_and_dispatches_plain_on_cpu():
                                    (96, 48, 64, 64, 64), (384, 384, 8, 8, 8),
                                    (5, 13, 7, 9, 20), (2, 3, 1, 1, 1)])
 def test_wgrad_plan(shape):
-    """H-wgrad-mma (bf16): items of 4 x 32 voxels, co tiles of 48 where 48
-    divides C_out, else 32 (16 for C_out <= 16), WGRAD_MMA_BLOCKS_PER_SM
-    blocks per SM on 132 SMs unless the volume runs out.  H-wgrad (float32):
-    tiles of <= WGRAD_MAX_TILE voxels, 8 <= tw <= 32, co tiles of
-    8 * cout_groups, about eight blocks per SM.  Both: at least one item per
+    """H-wgrad-mma (bf16) and H-wgrad-x3 (float32): items of 4 x 32 voxels,
+    co tiles of 48 where 48 divides C_out (bf16 only), else 32 (16 for C_out
+    <= 16),
+    WGRAD_MMA_BLOCKS_PER_SM (bf16) or WGRAD_X3_BLOCKS_PER_SM (float32) blocks
+    per SM on 132 SMs unless the volume runs out, at least one item per
     split."""
     ci, co, d, h, w = shape
-    for dtype, per_sm in ((torch.bfloat16, conv_cf.WGRAD_MMA_BLOCKS_PER_SM), (torch.float32, 8)):
+    for dtype, per_sm in ((torch.bfloat16, conv_cf.WGRAD_MMA_BLOCKS_PER_SM),
+                          (torch.float32, conv_cf.WGRAD_X3_BLOCKS_PER_SM)):
         plan = wgrad_plan(*shape, n_sm=132, dtype=dtype)
-        if dtype == torch.bfloat16:
-            assert (plan.th, plan.tw) == conv_cf.WGRAD_MMA_TILE
-            assert plan.co_tile == (48 if co % 48 == 0 else 32 if co > 16 else 16)
-        else:
-            assert plan.th * plan.tw <= conv_cf.WGRAD_MAX_TILE and 8 <= plan.tw <= 32
-            assert plan.th >= 1 and plan.co_tile == 8 * conv_cf.cout_groups(co)
+        assert (plan.th, plan.tw) == conv_cf.WGRAD_MMA_TILE
+        assert plan.co_tile == (48 if co % 48 == 0 and dtype == torch.bfloat16 else
+                                32 if co > 16 else 16)
         items = d * -(-h // plan.th) * -(-w // plan.tw)
         assert 1 <= plan.n_split <= items
-        blocks = plan.n_split * -(-ci // conv_cf.WGRAD_CHUNK) * -(-co // plan.co_tile)
+        blocks = plan.n_split * -(-ci // 8) * -(-co // plan.co_tile)
         assert blocks >= min(per_sm * 132, items)
 
 
@@ -154,7 +152,7 @@ def test_conv_train_bf16_keeps_dpre_in_activation_dtype():
 
 @pytest.mark.cuda
 def test_wgrad_kernel_matches_plain_on_card():
-    """H-wgrad-mma (bf16) and H-wgrad (float32) against
+    """H-wgrad-mma (bf16) and H-wgrad-x3 (float32) against
     conv3d_cf_wgrad_reference on the card, at ragged shapes (tiles cut at
     every face, ci and co not multiples of the channel group and co tile,
     W = 20 on the 2-byte load path) and the train step's first-conv shape
@@ -167,7 +165,7 @@ def test_wgrad_kernel_matches_plain_on_card():
     try:
         rng = np.random.default_rng(8)
         dev = torch.device("cuda")
-        for dtype, kernel in ((torch.bfloat16, "wgrad_mma"), (torch.float32, "wgrad")):
+        for dtype, kernel in ((torch.bfloat16, "wgrad_mma"), (torch.float32, "wgrad_x3")):
             for ci, co, d, h, w in ((5, 13, 7, 9, 20), (24, 72, 8, 12, 48), (3, 24, 16, 5, 40),
                                     (4, 24, 16, 16, 32), (48, 96, 6, 8, 64)):
                 x = _t(rng.normal(size=(ci, d, h, w))).to(dev, dtype)
