@@ -2,8 +2,8 @@
 holds each against its plain PyTorch version (and times the one PyTorch call
 that computes the same function, and the card's bound) at the shapes of the
 port's main paths: the tensor-core H-first-mma, H-fwd-mma and H-wgrad-mma
-in bf16, the split-TF32 tensor-core H-fwd-x3 and H-wgrad-x3 and the CUDA-core
-H-first in float32.  Then it drives each
+in bf16, and the split-TF32 tensor-core H-first-x3, H-fwd-x3 and H-wgrad-x3
+in float32.  Then it drives each
 path at full width (24 features, 5 levels, seeded random weights and data):
 
 - predict: ``synthsr_tpu_torch.cli.predict.main`` with flip TTA over three
@@ -104,14 +104,14 @@ ADV_CYCLES = 5        # warm 10:1 cycles timed with CUDA events
 PEAK_FLOPS = 989e12
 PEAK_F32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
-SOURCE = "synthsr_tpu_torch/csrc/conv3d_cf.cu"
+FIRST_X3_SOURCE = "synthsr_tpu_torch/csrc/conv3d_first_x3.cu"
 X3_SOURCE = "synthsr_tpu_torch/csrc/conv3d_fwd_x3.cu"
 WGRAD_X3_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad_x3.cu"
 MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_fwd_mma.cu"
 FIRST_MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_first_mma.cu"
 WGRAD_MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad_mma.cu"
 PALLAS = "synthsr_tpu/ops/conv_pallas.py"
-NO_LAUNCHES = {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
+NO_LAUNCHES = {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
                "wgrad_x3": 0}
 # kernel launches per train step of the shipped net (4 input channels, so no
 # first-conv kernel): 18 forward convs + 17 input gradients (not the first conv's) on
@@ -133,9 +133,9 @@ ADV_DISC_LAUNCHES = {**NO_LAUNCHES, "first_mma": 5, "fwd_mma": 27, "wgrad_mma": 
 # (1 first_mma) and its dx, 32->1 (1 fwd_mma; the critic is frozen: no wgrad)
 ADV_GEN_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_mma": 35, "wgrad_mma": 22}
 # per 10:1 cycle; the float32 run (one critic and one generator update) takes
-# the same counts on H-first, H-fwd-x3 and H-wgrad-x3
+# the same counts on H-first-x3, H-fwd-x3 and H-wgrad-x3
 ADV_LAUNCHES = {k: ADV_RATIO * ADV_DISC_LAUNCHES[k] + ADV_GEN_LAUNCHES[k] for k in NO_LAUNCHES}
-ADV_F32_LAUNCHES = {**NO_LAUNCHES, "first": 7, "fwd_x3": 62, "wgrad_x3": 28}
+ADV_F32_LAUNCHES = {**NO_LAUNCHES, "first_x3": 7, "fwd_x3": 62, "wgrad_x3": 28}
 # per train step at batch 2 with remat "levels" (the default at 2 examples a
 # rank): per example 18 forward convs, run again by the recomputation of the
 # backward pass (every conv sits in a checkpointed level), 17 input gradients
@@ -203,11 +203,11 @@ SHAPES = [
     # the train step's input-gradient convs: flipped, transposed weights, no epilogue
     ("24->72 @128^3 (dx)", "fwd_mma", (24,), 72, (128, 128, 128), "dx", BF16),
     ("48->144 @64^3 (dx)", "fwd_mma", (48,), 144, (64, 64, 64), "dx", BF16),
-    # the float32 kernels (H-first on the CUDA cores, H-fwd-x3 split TF32):
+    # the float32 kernels (H-first-x3 and H-fwd-x3, split TF32):
     # the float32 train step's convs at 128^3 (forward and input gradients,
     # each level's), then the level-0 convs of the float32 predict phase's
     # clinical volume
-    ("1->24 @128^3 f32", "first", (1,), 24, (128, 128, 128), "bias+elu", F32),
+    ("1->24 @128^3 f32", "first_x3", (1,), 24, (128, 128, 128), "bias+elu", F32),
     ("24->24 @128^3 f32", "fwd_x3", (24,), 24, (128, 128, 128), "bias+elu", F32),
     ("4->24 @128^3 f32", "fwd_x3", (4,), 24, (128, 128, 128), "bias+elu", F32),
     ("[24,48]->24 @128^3 f32", "fwd_x3", (24, 48), 24, (128, 128, 128), "bias+elu", F32),
@@ -216,7 +216,7 @@ SHAPES = [
     ("48->48 @64^3 f32", "fwd_x3", (48,), 48, (64, 64, 64), "bias+elu", F32),
     ("48->144 @64^3 f32 (dx)", "fwd_x3", (48,), 144, (64, 64, 64), "dx", F32),
     ("[192,384]->192 @16^3 f32", "fwd_x3", (192, 384), 192, (16, 16, 16), "bias+elu", F32),
-    ("1->24 @192x224x192 f32", "first", (1,), 24, (192, 224, 192), "bias+elu", F32),
+    ("1->24 @192x224x192 f32", "first_x3", (1,), 24, (192, 224, 192), "bias+elu", F32),
     ("24->24 @192x224x192 f32", "fwd_x3", (24,), 24, (192, 224, 192), "bias+elu", F32),
     ("[24,48]->24 @192x224x192 f32", "fwd_x3", (24, 48), 24, (192, 224, 192), "bias+elu", F32),
     # the critic's stride-1 convs (LeakyReLU fused) at 128^3 and the input
@@ -232,7 +232,11 @@ SHAPES = [
     ("64->32 @64^3 (dx)", "fwd_mma", (64,), 32, (64, 64, 64), "dx", BF16),
     ("128->64 @32^3 (dx)", "fwd_mma", (128,), 64, (32, 32, 32), "dx", BF16),
     ("256->128 @16^3 (dx)", "fwd_mma", (256,), 128, (16, 16, 16), "dx", BF16),
-    ("1->32 @64^3 f32 leaky", "first", (1,), 32, (64, 64, 64), "bias+leaky", F32),
+    ("1->32 @64^3 f32 leaky", "first_x3", (1,), 32, (64, 64, 64), "bias+leaky", F32),
+    # Hyperfine's first conv in float32 (compute_dtype="float32") at its padded
+    # shape, and W % 4 != 0: H-first-x3's 4-byte load and store path
+    ("2->24 @192x256x160 f32", "first_x3", (2,), 24, (192, 256, 160), "bias+elu", F32),
+    ("1->24 @192x224x190 f32", "first_x3", (1,), 24, (192, 224, 190), "bias+elu", F32),
     ("32->64 @32^3 f32 leaky", "fwd_x3", (32,), 64, (32, 32, 32), "bias+leaky", F32),
 ]
 
@@ -264,7 +268,7 @@ def tutorial_shapes():
 
 TUTORIAL_SHAPES, TUTORIAL_WGRAD_SHAPES = tutorial_shapes()
 SHAPES += TUTORIAL_SHAPES
-TIMED = {"first_mma": "1->24 @256^3", "first": "1->24 @128^3 f32",
+TIMED = {"first_mma": "1->24 @256^3", "first_x3": "1->24 @128^3 f32",
          "fwd_mma": "[24,48]->24 @256^3",
          "wgrad_mma": "(24,24) @128^3", "fwd_x3": "24->24 @128^3 f32",
          "wgrad_x3": "(24,24) @64^3 f32"}
@@ -294,7 +298,7 @@ LARGE_FOV = ("head_neck_ct.nii", (180, 250, 500), (1.0, 1.0, 1.0))
 HYPERFINE = [((128, 160, 32), 0.0), ((128, 160, 32), 10.0)]
 PREDICT_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_mma": 34}   # per volume, flip TTA
 HYPERFINE_LAUNCHES = {**NO_LAUNCHES, "first_mma": 1, "fwd_mma": 17}  # per pair, one forward
-PREDICT_F32_LAUNCHES = {**NO_LAUNCHES, "first": 2, "fwd_x3": 34}  # per volume, float32 compute
+PREDICT_F32_LAUNCHES = {**NO_LAUNCHES, "first_x3": 2, "fwd_x3": 34}  # per volume, float32 compute
 
 
 def ptxas_summary(log):
@@ -802,7 +806,7 @@ def adversarial_phase(conv_cf, root):
                    h5_exported=h5)
     summary.update(adversarial_checks(conv_cf, adv, resumed, root, pm, ps))
 
-    phase("main path: adversarial in float32 (1 step, ratio 1, 64^3: H-first, H-fwd-x3, "
+    phase("main path: adversarial in float32 (1 step, ratio 1, 64^3: H-first-x3, H-fwd-x3, "
           "H-wgrad-x3)")
     conv_cf.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1010,7 +1014,7 @@ def odd_size_critic_check(conv_cf, adv):
     (the 24^3 output of a 3-level generator: 24 -> 12 -> 6 -> 3 -> 2), a
     32-filter 4-level critic on seeded random weights and inputs: scores, the
     penalty's input gradient and its parameter gradient against the plain
-    critic by double autograd, in float32 (H-first / H-fwd-x3, NET_F32_BOUND:
+    critic by double autograd, in float32 (H-first-x3 / H-fwd-x3, NET_F32_BOUND:
     sum order only), and in bf16 (H-first-mma / H-fwd-mma) the scores and the
     penalty by NET_BOUND against plain float32.  The bf16 gradients are
     printed, not bounded: on these random weights they sit near 0.1-0.15
@@ -1040,7 +1044,7 @@ def odd_size_critic_check(conv_cf, adv):
     flat = lambda gs: torch.cat([g.reshape(-1) for g in gs])  # noqa: E731
     rl2 = lambda a, b: float((a.float() - b).norm() / b.norm())  # noqa: E731
     out = {}
-    for dtype, kernels in ((torch.float32, ("first", "fwd_x3")),
+    for dtype, kernels in ((torch.float32, ("first_x3", "fwd_x3")),
                            (torch.bfloat16, ("first_mma", "fwd_mma"))):
         critic = Discriminator3D(spatial, compute_dtype=dtype).to(dev)
         critic.load_state_dict(plain.state_dict())
@@ -1736,7 +1740,7 @@ def profile_predict_volume(predictor, vol, aff):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds = {"H-fwd-mma": "conv3d_fwd_mma_kernel", "H-first-mma": "conv3d_first_mma_kernel",
-             "H-first": "conv3d_first_kernel",
+             "H-first-x3": "conv3d_first_x3_kernel",
              "copy host->device": "Memcpy HtoD", "copy device->host": "Memcpy DtoH"}
     device_ms = dict.fromkeys([*kinds, "other"], 0.0)
     for ev in prof.key_averages():
@@ -1750,9 +1754,9 @@ def profile_predict_volume(predictor, vol, aff):
 
 def predict_f32_phase(predict, conv_cf, weights, clinical):
     """``Predictor(compute_dtype="float32").predict_volume`` on the clinical
-    volume: the float32 path of H-first and H-fwd-x3, and
+    volume: the float32 path of H-first-x3 and H-fwd-x3, and
     its fast network against the plain float32 forward."""
-    phase("main path: predict in float32 (H-first, H-fwd-x3; clinical volume)")
+    phase("main path: predict in float32 (H-first-x3, H-fwd-x3; clinical volume)")
     _, vol, aff, shape, zooms = clinical
     f32 = predict.Predictor(model_path=weights, compute_dtype="float32")
     conv_cf.reset_launch_counts()
@@ -1766,7 +1770,7 @@ def predict_f32_phase(predict, conv_cf, weights, clinical):
     require(pred.shape == want and np.all(np.isfinite(pred)), (pred.shape, want))
     require(pred.min() >= 0 and pred.max() <= 128, "range")
     x, _, _ = f32.prepare(vol, aff)
-    # the float32 rows of SHAPES hold H-first and H-fwd-x3 at this padded shape
+    # the float32 rows of SHAPES hold H-first-x3 and H-fwd-x3 at this padded shape
     require(tuple(x.shape[2:]) == (192, 224, 192), tuple(x.shape[2:]))
     with torch.no_grad():
         fast = f32.network(x)
@@ -2076,7 +2080,7 @@ def main():
     fwd_also = [f"{PALLAS}:920", f"{PALLAS}:1297", f"{PALLAS}:127"]
     for kernel, source, replaces, also in (
             ("first_mma", FIRST_MMA_SOURCE, f"{PALLAS}:569", []),
-            ("first", SOURCE, f"{PALLAS}:569", []),
+            ("first_x3", FIRST_X3_SOURCE, f"{PALLAS}:569", []),
             ("fwd_mma", MMA_SOURCE, f"{PALLAS}:270", fwd_also),
             ("wgrad_mma", WGRAD_MMA_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"]),
             ("fwd_x3", X3_SOURCE, f"{PALLAS}:270", fwd_also),

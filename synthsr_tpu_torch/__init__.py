@@ -21,7 +21,8 @@ Modules, each beside its JAX counterpart of the same path unless named:
   tensor cores by split TF32) replace ``_plane_kernel``,
   ``conv3d_cf_grouped``, ``_flat_kernel`` and ``_kernel``;
   ``conv3d_first_mma.cu`` (H-first-mma, bf16 on the tensor cores) and
-  ``conv3d_cf.cu``'s H-first (float32) replace ``_first_kernel``;
+  ``conv3d_first_x3.cu`` (H-first-x3, float32 on the tensor cores by split
+  TF32) replace ``_first_kernel``;
   ``conv3d_wgrad_mma.cu`` (H-wgrad-mma, bf16) and ``conv3d_wgrad_x3.cu``
   (H-wgrad-x3, float32, split TF32) replace ``_wgrad_kernel`` and
   ``_wgrad_flat_kernel``, with ``conv3d_wgrad.cu``'s reduce;

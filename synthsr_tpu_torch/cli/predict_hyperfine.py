@@ -14,8 +14,8 @@ prediction ``minimum + spread·(residual + t1)`` clipped at 0 (:128-131).
 
 The network runs on CUDA unless ``--cpu`` (or ``device="cpu"``) is given; a
 missing GPU raises.  ``--fast_inference`` (default on) runs the fast forward
-(``models/unet_cf.py``: 1 H-first launch for the 2-channel first conv, 17
-H-fwd-mma in bf16); ``off`` selects the plain float32 ``UNet3D.forward``, a test
+(``models/unet_cf.py``: 1 H-first-mma launch for the 2-channel first conv,
+17 H-fwd-mma in bf16; H-first-x3 and H-fwd-x3 in float32); ``off`` selects the plain float32 ``UNet3D.forward``, a test
 reference that is refused on a CUDA device.
 """
 

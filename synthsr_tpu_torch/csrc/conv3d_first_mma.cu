@@ -3,7 +3,7 @@
 // Replaces the TPU kernel K1 (_first_kernel, synthsr_tpu/ops/conv_pallas.py:
 // 569), which multiplies a 27*cin-tap patch matrix with a ones row for the
 // bias by (cout, 27*cin + 1) bf16 weights into float32 sums, as mma.sync does
-// here.  Float32 activations keep the CUDA-core H-first of conv3d_cf.cu.  The
+// here.  Float32 activations run on H-first-x3 (conv3d_first_x3.cu).  The
 // launcher runs on the stream it is given, allocates nothing and returns
 // cudaGetLastError() (0 = launched).
 //

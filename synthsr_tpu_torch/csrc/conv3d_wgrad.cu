@@ -7,7 +7,8 @@
 // the splits in split order into dw (27, ci, co), so dw is bit-reproducible
 // run to run (no atomics).  Bound by bytes: it reads the partials once.  The
 // launcher runs on the stream it is given, allocates nothing and returns
-// cudaGetLastError() (0 = launched).
+// cudaGetLastError() (0 = launched).  Also the library's shared entry point:
+// conv3d_error_string, the message of a launcher's error code.
 
 #include <cuda_runtime.h>
 
@@ -32,6 +33,8 @@ __global__ void conv3d_wgrad_reduce_kernel(const float* __restrict__ partial, in
 }  // namespace
 
 extern "C" {
+
+const char* conv3d_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Sums (n_split, 27, ci_pad, co_pad) partials in split order into dw (27, ci, co);
 // the second pass of both H-wgrad-mma and H-wgrad-x3.

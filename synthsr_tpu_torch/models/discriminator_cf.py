@@ -5,7 +5,7 @@
   ``pallas_levels=0.5``, :163-242): the critic's first conv (C_in = 1 ->
   ``n_filters``, LeakyReLU fused) runs per example through
   :func:`~synthsr_tpu_torch.ops.conv_train.conv3d_cf_train`, which is
-  H-first-mma on a card in bf16 (H-first in float32); every layer after it is
+  H-first-mma on a card in bf16 (H-first-x3 in float32); every layer after it is
   batched plain PyTorch (cuDNN), as it is batched XLA in JAX.  First-order
   differentiable: the WGAN terms of both updates.  Whether the first conv's
   backward runs its input-gradient conv follows ``ctx.needs_input_grad``

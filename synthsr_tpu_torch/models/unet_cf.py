@@ -2,8 +2,8 @@
 ``synthsr_tpu/models/unet_cf.py``.
 
 Every 3³ conv goes through :func:`synthsr_tpu_torch.ops.conv_cf.conv3d_cf`, at
-every level, so on a card one forward of the shipped net is exactly 1 H-first
-+ 17 H-fwd-mma launches (H-fwd in float32).  The decoder's first conv reads
+every level, so on a card one forward of the shipped net is exactly 1
+H-first-mma + 17 H-fwd-mma launches (H-first-x3 + 17 H-fwd-x3 in float32).  The decoder's first conv reads
 ``[skip, up]`` as two sources (packed for that split); the last conv of
 each decoder level folds its BatchNorm in as ``post``.  Where JAX folds the
 1x1x1 likelihood too (unet_cf.py:310-317: one label, linear activation) the

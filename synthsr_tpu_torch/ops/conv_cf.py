@@ -22,22 +22,24 @@
 Dispatch, by device and dtype, with no fallback: a CPU tensor goes to
 :func:`conv3d_cf_reference` (plain PyTorch); a CUDA tensor that passes the
 first-conv gate (one source, C_in <= 2, no ``accum``, no ``head``; K1's
-shapes) launches **H-first-mma** for bf16 with C_out <= 32 (tensor cores,
-``csrc/conv3d_first_mma.cu``) or **H-first** for float32 (CUDA cores,
-``csrc/conv3d_cf.cu``), both replacing K1; any other conv launches
-**H-fwd-mma** for bf16 (tensor cores, ``csrc/conv3d_fwd_mma.cu``) or
-**H-fwd-x3** for float32 (tensor cores, ``csrc/conv3d_fwd_x3.cu``), both
-replacing K2, K3, K4 and K5; any other device raises.
+shapes) with C_out <= 32 launches **H-first-mma** for bf16
+(``csrc/conv3d_first_mma.cu``) or **H-first-x3** for float32
+(``csrc/conv3d_first_x3.cu``), both on the tensor cores and both replacing
+K1; any other conv (a first conv with C_out > 32 too) launches **H-fwd-mma**
+for bf16 (``csrc/conv3d_fwd_mma.cu``) or **H-fwd-x3** for float32
+(``csrc/conv3d_fwd_x3.cu``), both on the tensor cores and both replacing K2,
+K3, K4 and K5; any other device raises.
 
-Split TF32 ("3xTF32") is how the float32 kernels H-fwd-x3 and H-wgrad-x3
-keep float32 accuracy on the tensor cores: each float32 operand ``a`` is
-``big = tf32(a)`` (round to nearest, ties away from zero) plus ``small =
+Split TF32 ("3xTF32") is how the float32 kernels H-first-x3, H-fwd-x3 and
+H-wgrad-x3 keep float32 accuracy on the tensor cores: each float32 operand
+``a`` is ``big = tf32(a)`` (round to nearest, ties away from zero) plus ``small =
 tf32(a - big)``, and each product is ``small_a·big_b + big_a·small_b +
 big_a·big_b`` summed in float32; the dropped ``small·small`` term and the
 rounding of ``small`` are each about 2^-22 relative.  Plain TF32 (``big·big``
 alone) keeps about three decimal digits.  :func:`pack_conv` splits the
-weights once per weight set (:func:`_x3_fragments`); the kernels split the
-activations as they load them.
+weights once per weight set (:func:`_x3_fragments`,
+:func:`_first_x3_fragments`); H-fwd-x3 splits the activations as it loads
+them, H-first-x3 as it stages its halo.
 
 K5 (``_kernel``, ``synthsr_tpu/ops/conv_pallas.py:127``, entry ``conv3d_cf``
 :990) is the TPU's blocked conv for the shapes the plane and folded-plane
@@ -64,6 +66,7 @@ nothing else.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -71,7 +74,7 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-LAUNCHES = {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
+LAUNCHES = {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
             "wgrad_x3": 0}
 
 MMA_STEPS = 14  # k16 steps per 8-channel group of H-fwd-mma (FM_STEPS in csrc/conv3d_fwd_mma.cu)
@@ -83,6 +86,11 @@ WGRAD_X3_BLOCKS_PER_SM = 2  # the same for H-wgrad-x3 (its shared memory holds t
 # and the most output channels (two m16 tiles); conv3d_first_mma.cu agrees
 FIRST_MMA_KPAD = {1: 32, 2: 64}
 FIRST_MMA_MAX_COUT = 32
+# H-first-x3: k8 steps of K (27·C_in taps, zero-padded) and the most planes
+# per block (its most output channels are FIRST_MMA_MAX_COUT: four n8 tiles);
+# conv3d_first_x3.cu agrees
+FIRST_X3_STEPS = {1: 4, 2: 7}
+FIRST_X3_MAX_PLANES = 8
 _ACT_CODES = {None: 0, "elu": 1, "relu": 2, "leaky": 3}
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
@@ -99,6 +107,10 @@ def build_kernels() -> float:
     if ({c: lib.conv3d_first_mma_kpad(c) for c in FIRST_MMA_KPAD} != FIRST_MMA_KPAD
             or lib.conv3d_first_mma_max_cout() != FIRST_MMA_MAX_COUT):
         raise RuntimeError("csrc/conv3d_first_mma.cu and conv_cf.FIRST_MMA_* disagree")
+    if ({c: lib.conv3d_first_x3_steps(c) for c in FIRST_X3_STEPS} != FIRST_X3_STEPS
+            or lib.conv3d_first_x3_max_cout() != FIRST_MMA_MAX_COUT
+            or lib.conv3d_first_x3_max_planes() != FIRST_X3_MAX_PLANES):
+        raise RuntimeError("csrc/conv3d_first_x3.cu and conv_cf.FIRST_X3_* disagree")
     _lib = lib
     return seconds
 
@@ -116,9 +128,8 @@ def reset_launch_counts():
 
 
 def cout_groups(cout: int) -> int:
-    """Output channels per H-fwd-x3 block (and H-first's ``packed`` cout
-    tile), in groups of 8: 24 wherever it divides C_out (every U-Net width:
-    24·2^l), else up to 32."""
+    """Output channels per H-fwd-x3 block, in groups of 8: 24 wherever it
+    divides C_out (every U-Net width: 24·2^l), else up to 32."""
     if cout % 24 == 0:
         return 3
     return min(4, -(-cout // 8))
@@ -145,16 +156,14 @@ class PackedConv:
     """A conv weight made ready once for the plain version and the kernels.
 
     ``w``: DHWIO float32, values rounded to ``dtype`` (the plain version's
-    operand).  ``packed``: (cin, 27, cout_pad) float32, zero-padded to the
-    cout tile, H-first's layout; made for float32 with C_in <= 2, else
-    None.  ``frags``: the B fragments of H-fwd-mma (bf16, see
+    operand).  ``frags``: the B fragments of H-fwd-mma (bf16, see
     :func:`_mma_fragments`) or H-fwd-x3 (float32, split TF32, see
     :func:`_x3_fragments`); ``splits`` are the source channel counts they
-    were laid out for.  ``first_frags``:
-    the bf16 A fragments of H-first-mma (see :func:`_first_mma_fragments`),
-    for bf16 with C_in <= 2 and C_out <= 32, else None."""
+    were laid out for.  ``first_frags``, for C_in <= 2 and C_out <= 32, else
+    None: the A fragments of H-first-mma (bf16, see
+    :func:`_first_mma_fragments`) or the B fragments of H-first-x3 (float32,
+    split TF32, see :func:`_first_x3_fragments`)."""
     w: torch.Tensor
-    packed: torch.Tensor | None
     frags: torch.Tensor | None
     dtype: torch.dtype
     ng: int
@@ -255,6 +264,48 @@ def _first_mma_fragments(wr: torch.Tensor) -> torch.Tensor:
     return v.permute(0, 3, 2, 5, 4, 1, 6).to(torch.bfloat16).contiguous()
 
 
+def _first_x3_fragments(wr: torch.Tensor) -> torch.Tensor:
+    """H-first-x3's B operand (weights), split TF32: (nt, steps, 8 g, 4 tq,
+    2 part, 2 half) float32, nt = ceil(C_out / 8) n8 tiles, i.e. (n8 tile,
+    step, lane) x 4 values in the order the kernel's lanes read them.
+
+    B is (K = 8·steps, 8·nt): column n = 8j + g is an output channel (zero
+    past C_out); row k = 8s + kk of step s is tap ``8 // C_in * s + kk %
+    (8 // C_in)`` (tap = kd*9 + kh*3 + kw) of channel ``kk // (8 // C_in)``,
+    zero past tap 26 (so for C_in = 2 the two channels of a tap are k and
+    k + 4).  Lane 4g + tq of n8 tile j, step s holds the mma.m16n8k8 tf32 B
+    fragment of column 8j + g: part 0 (tf32(w)) then part 1 (tf32(w - part
+    0)) of rows 8s + tq (half 0, b0) and 8s + tq + 4 (half 1, b1)."""
+    cin, cout = wr.shape[3], wr.shape[4]
+    steps, tps = FIRST_X3_STEPS[cin], 8 // cin
+    nt = -(-cout // 8)
+    w = F.pad(wr.reshape(27, cin, cout), (0, 8 * nt - cout, 0, 0, 0, steps * tps - 27))
+    b = w.reshape(steps, tps, cin, 8 * nt).permute(0, 2, 1, 3)  # (s, c, tap in step, n)
+    v = b.reshape(steps, 2, 4, nt, 8)  # s, half, tq, j, g
+    parts = [p.permute(3, 0, 4, 2, 1) for p in split_tf32(v)]
+    return torch.stack(parts, -2).contiguous()
+
+
+def first_x3_planes(cin: int, d: int, h: int, w: int, n_sm: int) -> int:
+    """Planes per H-first-x3 block: the most of 8, 4, 2, 1 (C_in = 2: of 4, 2,
+    1; 8 planes of its 16-byte halo slots leave room for two blocks an SM, not
+    three) that still gives each of the card's ``n_sm`` SMs a block.  More
+    planes stage fewer halo planes per output plane; at 64³ (16 tiles a
+    plane), 4 planes ran faster than 2 and 8 (tools/ab_first_x3_variants.py)."""
+    tiles = -(-w // 32) * -(-h // 8)
+    for nz in (8, 4, 2):
+        if nz <= FIRST_X3_MAX_PLANES // cin and tiles * -(-d // nz) >= n_sm:
+            return nz
+    return 1
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    # cached: a 64³ first conv's call is host-bound, and
+    # torch.cuda.get_device_properties takes microseconds of host time
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def pack_conv(w: torch.Tensor, dtype: torch.dtype, splits=None) -> PackedConv:
     """Round a DHWIO 3³ kernel to ``dtype`` and arrange it for the kernels,
     on the weight's own device.  ``splits``: the channel counts of the sources
@@ -270,16 +321,11 @@ def pack_conv(w: torch.Tensor, dtype: torch.dtype, splits=None) -> PackedConv:
     wr = w.detach().to(dtype).to(torch.float32).contiguous()
     bf16 = dtype == torch.bfloat16
     ng = mma_groups(cout) if bf16 else cout_groups(cout)
-    packed = None
-    if not bf16 and cin <= 2:
-        cout_pad = -(-cout // (8 * ng)) * (8 * ng)
-        packed = F.pad(wr.reshape(27, cin, cout).permute(1, 0, 2), (0, cout_pad - cout))
-        packed = packed.contiguous()
     frags = _mma_fragments(wr, splits, ng) if bf16 else _x3_fragments(wr, splits, ng)
     first = None
-    if bf16 and cin in FIRST_MMA_KPAD and cout <= FIRST_MMA_MAX_COUT:
-        first = _first_mma_fragments(wr)
-    return PackedConv(wr, packed, frags, dtype, ng, splits, first)
+    if cin in FIRST_MMA_KPAD and cout <= FIRST_MMA_MAX_COUT:
+        first = _first_mma_fragments(wr) if bf16 else _first_x3_fragments(wr)
+    return PackedConv(wr, frags, dtype, ng, splits, first)
 
 
 def _sources(x):
@@ -403,22 +449,23 @@ def _launch(srcs, w, bias, activation, post, head, accum):
         ptr = (lambda t: None if t is None else t.data_ptr())
         act = _ACT_CODES[activation]
         first = len(srcs) == 1 and cin <= 2 and accum is None and head is None
-        if first and dtype == torch.float32:
-            out = torch.empty((cout, d, h, wd), dtype=dtype, device=dev)
-            err = lib.conv3d_first_launch(
-                ptr(srcs[0]), cin, d, h, wd, ptr(pc.packed), cout, pc.packed.shape[2],
-                ptr(b), ptr(p), act, ptr(out), stream)
-            _check(lib, err, "H-first")
-            LAUNCHES["first"] += 1
-            return out
         if first and pc.first_frags is not None:
             out = torch.empty((cout, d, h, wd), dtype=dtype, device=dev)
-            vec = int(wd % 8 == 0 and _aligned(srcs[0], out))
-            err = lib.conv3d_first_mma_launch(
-                ptr(srcs[0]), cin, d, h, wd, ptr(pc.first_frags), cout, ptr(b), ptr(p), act,
+            if dtype == torch.bfloat16:
+                vec = int(wd % 8 == 0 and _aligned(srcs[0], out))
+                err = lib.conv3d_first_mma_launch(
+                    ptr(srcs[0]), cin, d, h, wd, ptr(pc.first_frags), cout, ptr(b), ptr(p),
+                    act, vec, ptr(out), stream)
+                _check(lib, err, "H-first-mma")
+                LAUNCHES["first_mma"] += 1
+                return out
+            vec = int(wd % 4 == 0 and _aligned(srcs[0], out))
+            nz = first_x3_planes(cin, d, h, wd, _sm_count(dev.index))
+            err = lib.conv3d_first_x3_launch(
+                ptr(srcs[0]), cin, d, h, wd, nz, ptr(pc.first_frags), cout, ptr(b), ptr(p), act,
                 vec, ptr(out), stream)
-            _check(lib, err, "H-first-mma")
-            LAUNCHES["first_mma"] += 1
+            _check(lib, err, "H-first-x3")
+            LAUNCHES["first_x3"] += 1
             return out
         if head is not None:
             out = torch.empty((1, d, h, wd), dtype=torch.float32, device=dev)

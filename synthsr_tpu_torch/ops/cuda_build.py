@@ -26,7 +26,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("conv3d_cf.cu", "conv3d_wgrad.cu", "conv3d_fwd_mma.cu", "conv3d_wgrad_mma.cu",
+SOURCES = ("conv3d_first_x3.cu", "conv3d_wgrad.cu", "conv3d_fwd_mma.cu", "conv3d_wgrad_mma.cu",
            "conv3d_first_mma.cu", "conv3d_fwd_x3.cu", "conv3d_wgrad_x3.cu")
 HEADERS = ("mma_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,8 +38,8 @@ _SIGNATURES = {
                                _P, _P, _I, _I, _P, _P], _I),
     "conv3d_fwd_x3_launch": ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
                               _P, _P, _I, _I, _P, _P], _I),
-    "conv3d_first_launch": ([_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P,
-                             _P], _I),
+    "conv3d_first_x3_launch": ([_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _I,
+                                _P, _P], _I),
     "conv3d_first_mma_launch": ([_P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _I, _P,
                                  _P], _I),
     "conv3d_wgrad_mma_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
@@ -49,6 +49,9 @@ _SIGNATURES = {
     "conv3d_fwd_mma_steps": ([], _I),
     "conv3d_first_mma_kpad": ([_I], _I),
     "conv3d_first_mma_max_cout": ([], _I),
+    "conv3d_first_x3_steps": ([_I], _I),
+    "conv3d_first_x3_max_cout": ([], _I),
+    "conv3d_first_x3_max_planes": ([], _I),
     "conv3d_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -124,7 +124,7 @@ def test_cpu_dispatch_is_plain_and_launches_nothing():
     got = conv3d_cf(x, pack_conv(w, torch.float32), activation="elu")
     want = conv3d_cf_reference(x, w, activation="elu")
     assert torch.equal(got, want)
-    assert LAUNCHES == {"first": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
+    assert LAUNCHES == {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
                         "wgrad_x3": 0}
     with pytest.raises(ValueError):
         conv3d_cf(x.to("meta"), w.to("meta"))
@@ -135,8 +135,12 @@ def test_cpu_dispatch_is_plain_and_launches_nothing():
 def test_pack_conv_layout(cin, cout):
     """The kernels' weight layouts, values rounded to the compute dtype.
 
-    float32 with C_in <= 2 (H-first): (cin, 27, cout_pad), tap =
-    kd*9+kh*3+kw, zero padding to the cout tile.  float32 (H-fwd-x3):
+    float32 with C_in <= 2 and C_out <= 32 (H-first-x3): the split-TF32 B
+    fragments (n8 tiles, steps, g, tq, part, half): unpacked, row k =
+    8s+4half+tq of step s is tap (8/C_in)*s + kk % (8/C_in) of channel
+    kk // (8/C_in) (kk = 4half+tq), column 8j+g an output channel; part 0 is
+    tf32(w), part 1 tf32(w - part 0), their sum w within 2^-22; columns past
+    C_out and taps past 26 zero.  float32 (H-fwd-x3):
     the split-TF32 B fragments (n_tiles, groups, 27, ng, g, tq, part, half):
     part 0 is tf32(w) (round to nearest, ties away), part 1 tf32(w - part 0),
     lane 4g+tq output channel 8j+g, channels 8k+tq (half 0) and 8k+tq+4
@@ -167,18 +171,27 @@ def test_pack_conv_layout(cin, cout):
             assert torch.equal(got.float(), torch.stack([
                 want[13, k] if k < 27 * cin and 13 < cout else torch.tensor(0.0)
                 for k in (28, 29)]))
+        elif dtype == torch.float32 and cin <= 2 and cout <= conv_cf.FIRST_MMA_MAX_COUT:
+            steps, tps, nt = conv_cf.FIRST_X3_STEPS[cin], 8 // cin, -(-cout // 8)
+            f = pc.first_frags
+            assert f.dtype == torch.float32 and f.shape == (nt, steps, 8, 4, 2, 2)
+            # (j, s, g, tq, part, half) -> (part, s, c, tap in step, n = 8j + g)
+            b = f.permute(4, 1, 5, 3, 0, 2).reshape(2, steps, cin, tps, 8 * nt)
+            full = b.permute(0, 1, 3, 2, 4).reshape(2, steps * tps, cin, 8 * nt)
+            big, small = full[0, :27, :, :cout], full[1, :27, :, :cout]
+            w27 = wr.reshape(27, cin, cout)
+            assert torch.equal(big, conv_cf.tf32_round(w27))
+            assert torch.equal(small, conv_cf.tf32_round(w27 - big))
+            assert float(((big.double() + small.double() - w27.double()).abs()
+                          - 2.0 ** -22 * w27.double().abs()).max()) <= 0
+            assert not (full.view(torch.int32) & 0x1FFF).any()
+            assert not full[:, 27:].any() and not full[..., cout:].any()
+            # lane 4g+tq = 4*5+2 of n8 tile 0, step 1, big b1: output channel 5,
+            # row k = 8 + 2 + 4 = tap tps + 6 % tps of channel 6 // tps
+            tap, c = tps + 6 % tps, 6 // tps
+            assert torch.equal(f[0, 1, 5, 2, 0, 1], conv_cf.tf32_round(w27[tap, c, 5]))
         else:
             assert pc.first_frags is None
-        if dtype == torch.float32 and cin <= 2:
-            ng = conv_cf.cout_groups(cout)
-            cins, taps, cout_pad = pc.packed.shape
-            assert (cins, taps) == (cin, 27) and cout_pad % (8 * ng) == 0
-            assert cout_pad - cout < 8 * ng and pc.packed.is_contiguous()
-            for kd, kh, kw in ((0, 0, 0), (1, 2, 0), (2, 1, 2)):
-                assert torch.equal(pc.packed[:, kd * 9 + kh * 3 + kw, :cout], wr[kd, kh, kw])
-            assert not pc.packed[:, :, cout:].any()
-        else:
-            assert pc.packed is None
         if dtype == torch.float32:
             ng = conv_cf.cout_groups(cout)
             n_tiles, groups = -(-cout // (8 * ng)), -(-cin // 8)
@@ -251,11 +264,11 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """H-first-mma, H-fwd-mma (bf16), H-first and H-fwd-x3 (float32) against
+    """H-first-mma, H-fwd-mma (bf16), H-first-x3 and H-fwd-x3 (float32) against
     conv3d_cf_reference on the card, at one small shape per feature: first
     conv (C_in 1 and 2) with and without its epilogue, with post, with 11
-    planes (a ragged block of 8), and with C_out = 40 (past H-first-mma's 32:
-    H-fwd-mma in bf16), [skip, up] sources of [8,16] and
+    planes (a ragged block), and with C_out = 40 (past the first-conv
+    kernels' 32: H-fwd-mma, H-fwd-x3), [skip, up] sources of [8,16] and
     [5,11] (each padded to 8 in shared memory) with bias + elu + post, C_in 4
     and 13 with accum + relu, head; H = 12 and W = 48 / 20 leave ragged tiles
     (W = 20 takes the 2-byte load path); the flipped, transposed weights of an
@@ -275,7 +288,7 @@ def test_kernels_match_plain_on_card():
             return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
         for dtype, tol, kernel, first in ((torch.bfloat16, 1e-2, "fwd_mma", "first_mma"),
-                                          (torch.float32, 1e-5, "fwd_x3", "first")):
+                                          (torch.float32, 1e-5, "fwd_x3", "first_x3")):
             post = r(2, 24)
             for w in (48, 20):
                 cases = [
@@ -285,7 +298,7 @@ def test_kernels_match_plain_on_card():
                     (dict(x=r(2, 11, h, w).to(dtype), w=r(3, 3, 3, 2, 24), bias=r(24),
                           activation="relu", post=post), first),
                     (dict(x=r(1, d, h, w).to(dtype), w=r(3, 3, 3, 1, 40), bias=r(40),
-                          activation="elu"), kernel if dtype == torch.bfloat16 else first),
+                          activation="elu"), kernel),
                     (dict(x=[r(8, d, h, w).to(dtype), r(16, d, h, w).to(dtype)],
                           w=r(3, 3, 3, 24, 24) * 0.1, bias=r(24), activation="elu",
                           post=post), kernel),

@@ -1,8 +1,9 @@
 """Plain-torch twins of the float32 tensor-core kernels H-fwd-x3
-(csrc/conv3d_fwd_x3.cu) and H-wgrad-x3 (csrc/conv3d_wgrad_x3.cu), held
-against the plain float32 versions on the CPU.
+(csrc/conv3d_fwd_x3.cu), H-wgrad-x3 (csrc/conv3d_wgrad_x3.cu) and H-first-x3
+(csrc/conv3d_first_x3.cu), held against the plain float32 versions on the
+CPU (H-first-x3's also against JAX's K1 in interpret mode).
 
-Both kernels take float32 operands to the TF32 tensor cores by split TF32:
+The kernels take float32 operands to the TF32 tensor cores by split TF32:
 ``a = big + small``, ``big = tf32(a)`` and ``small = tf32(a - big)``, each
 rounded as ``cvt.rna.tf32.f32`` rounds (ties away from zero), and each
 product as ``small_a·big_b + big_a·small_b + big_a·big_b`` in float32,
@@ -19,7 +20,14 @@ The twins restate that arithmetic and the layouts it rests on:
 - H-wgrad-x3: (plane, 4 x 32 tile) items, g zero outside the volume, 27
   GEMMs per item over its 128 voxels with x shifted by the tap, the items
   split over ``wgrad_plan``'s n_split blocks and the partials summed in split
-  order.
+  order;
+- H-first-x3: one GEMM of A = the taps of the zero-padded volume, split once
+  as the kernel stages its halo (column k = 8s + kk of step s: tap
+  (8 / C_in)·s + kk % (8 / C_in), channel kk // (8 / C_in); padding columns
+  read tap 26, times a zero weight), by B (K x output channels in n8 tiles)
+  read back from ``pack_conv``'s split fragments in the lanes' order, one
+  chain over all of K (no partial), then the bias as a float32 add,
+  activation and post.
 
 Tolerances: relative L2 <= 1e-5 (``F32_BOUND``, the card's bound for the
 float32 kernels) and elementwise ``tests/test_torch_mma.py``'s TOL, atol and
@@ -148,8 +156,9 @@ def test_fwd_x3_twin_matches_plain(cins, cout, spatial, epilogue):
 
 
 def test_plain_tf32_misses_the_float32_bound():
-    """A seeded 24 -> 24 conv: big·big alone (plain TF32) lands above 1e-5
-    relative L2 of plain float32, the split passes it."""
+    """A seeded 24 -> 24 conv (H-fwd-x3) and a 1 -> 24 first conv
+    (H-first-x3): big·big alone (plain TF32) lands above 1e-5 relative L2 of
+    plain float32, the split passes it."""
     rng = np.random.default_rng(24)
     srcs, pc, kw = _fwd_case(rng, (24,), 24, (4, 16, 32), "bias")
     want = conv3d_cf_reference(srcs[0], pc.w, **kw)
@@ -157,6 +166,115 @@ def test_plain_tf32_misses_the_float32_bound():
     split = _rel_l2(fwd_x3_twin(srcs, pc, **kw), want)
     assert plain > F32_BOUND and split <= F32_BOUND, (plain, split)
     assert split < plain / 50
+    x, pc, kw = _first_case(rng, 1, 24, (4, 16, 32), "bias")
+    want = conv3d_cf_reference(x, pc.w, **kw)
+    plain = _rel_l2(first_x3_twin(x, pc, plain_tf32=True, **kw), want)
+    split = _rel_l2(first_x3_twin(x, pc, **kw), want)
+    assert plain > F32_BOUND and split <= F32_BOUND, (plain, split)
+    assert split < plain / 50
+
+
+def first_x3_twin(x, pc, bias=None, activation=None, post=None, plain_tf32=False):
+    """H-first-x3's arithmetic on a float32 (C_in, D, H, W) source, (C_out, D,
+    H, W) float32; ``plain_tf32`` keeps only big·big."""
+    cin, d, h, w = x.shape
+    steps, tps = conv_cf.FIRST_X3_STEPS[cin], 8 // cin
+    f = pc.first_frags  # (j, s, g, tq, part, half)
+    nt = f.shape[0]
+    assert f.dtype == torch.float32 and f.shape == (nt, steps, 8, 4, 2, 2)
+    # (part, k = 8s + 4half + tq, n = 8j + g)
+    bb, bs = f.permute(4, 1, 5, 3, 0, 2).reshape(2, 8 * steps, 8 * nt)
+    xb, xs = split_tf32(F.pad(x.float(), (1, 1, 1, 1, 1, 1)))  # the split halo
+
+    def a_cols(xt):  # A (voxels, K): column k's tap of its channel
+        cols = []
+        for k in range(8 * steps):
+            s, kk = divmod(k, 8)
+            dz, dy, dx = _tap(min(tps * s + kk % tps, 26))
+            cols.append(xt[kk // tps, dz:dz + d, dy:dy + h, dx:dx + w].reshape(-1))
+        return torch.stack(cols, 1)
+
+    ab, asm = a_cols(xb), a_cols(xs)
+    acc = torch.zeros(d * h * w, 8 * nt)
+    for s in range(steps):  # one chain over all of K: per step small·big, big·small, big·big
+        ks = slice(8 * s, 8 * s + 8)
+        if not plain_tf32:
+            acc += asm[:, ks] @ bb[ks]
+            acc += ab[:, ks] @ bs[ks]
+        acc += ab[:, ks] @ bb[ks]
+    y = acc[:, :pc.cout].t().reshape(-1, d, h, w)
+    return _epilogue(y, bias, activation, post, None, None)
+
+
+def _first_case(rng, cin, cout, spatial, epilogue):
+    x = _f32(rng, cin, *spatial)
+    pc = pack_conv(_f32(rng, 3, 3, 3, cin, cout, scale=0.3), torch.float32)
+    kw = {"activation": next((a for a in ("elu", "relu", "leaky") if a in epilogue), None)}
+    if "bias" in epilogue:
+        kw["bias"] = _f32(rng, cout)
+    if "post" in epilogue:
+        kw["post"] = _f32(rng, 2, cout)
+    return x, pc, kw
+
+
+FIRST_CASES = [
+    (1, 24, (3, 12, 40), "bias+elu+post"),     # the shipped first conv; ragged H and W
+    (2, 24, (9, 11, 37), "bias+relu+post"),    # Hyperfine's; ragged D (9 planes), H and W
+    (1, 32, (2, 9, 20), "bias+leaky+post"),    # the critic's; two full m-tiles
+    (2, 8, (3, 8, 33), "post"),                # one m-tile, no bias, no activation
+    (1, 8, (2, 5, 20), "bias+elu"),            # one m-tile, no post
+    (2, 32, (2, 8, 36), "bias+leaky+post"),    # C_in 2, two full m-tiles
+]
+
+
+@pytest.mark.parametrize("cin,cout,spatial,epilogue", FIRST_CASES)
+def test_first_x3_twin_matches_plain(cin, cout, spatial, epilogue):
+    rng = np.random.default_rng(100 * cin + cout)
+    x, pc, kw = _first_case(rng, cin, cout, spatial, epilogue)
+    got = first_x3_twin(x, pc, **kw)
+    want = conv3d_cf_reference(x, pc.w, **kw)
+    assert got.shape == want.shape
+    assert _rel_l2(got, want) <= F32_BOUND
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("cin,cout,activation", [(1, 24, "elu"), (2, 24, None), (1, 8, "relu"),
+                                                 (2, 32, "leaky")])
+def test_first_x3_twin_matches_pallas(cin, cout, activation):
+    """The twin against K1 itself (``conv3d_cf_planes``, C_in <= 2, in
+    interpret mode) on the same numpy inputs, with bias and post, at a shape
+    K1 takes (W % 128 == 0, D % 4 == 0)."""
+    import jax.numpy as jnp
+
+    from synthsr_tpu.ops.conv_pallas import conv3d_cf_planes
+
+    rng = np.random.default_rng(7 * cin + cout)
+    x = rng.normal(size=(cin, 4, 8, 128)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 3, cin, cout)) * 0.3).astype(np.float32)
+    b = rng.normal(size=(cout,)).astype(np.float32)
+    post = rng.normal(size=(2, cout)).astype(np.float32)
+    want = np.array(conv3d_cf_planes(jnp.asarray(x), jnp.asarray(w), bias=jnp.asarray(b),
+                                     activation=activation, post=jnp.asarray(post),
+                                     interpret=True))
+    got = first_x3_twin(torch.from_numpy(x), pack_conv(torch.from_numpy(w), torch.float32),
+                        bias=torch.from_numpy(b), activation=activation,
+                        post=torch.from_numpy(post))
+    assert _rel_l2(got, torch.from_numpy(want)) <= F32_BOUND
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_first_x3_planes():
+    """Planes per H-first-x3 block: 8 where the grid still gives each of 132
+    SMs a block (128³, the float32 predict phase's 192x224x192), 4 at 64³
+    (the float32 critic's first conv: 16 tiles a plane), at most 4 for
+    C_in = 2, and 1 for a volume too small to fill the card."""
+    planes = conv_cf.first_x3_planes
+    assert planes(1, 128, 128, 128, 132) == 8
+    assert planes(1, 192, 224, 192, 132) == 8
+    assert planes(1, 64, 64, 64, 132) == 4
+    assert planes(2, 192, 256, 160, 132) == 4
+    assert planes(1, 4, 8, 32, 132) == 1
+    assert planes(1, 64, 8, 32, 1) == 8 and planes(2, 64, 8, 32, 1) == 4
 
 
 def test_split_is_exact_to_float32():
@@ -273,6 +391,33 @@ def test_fwd_x3_matches_plain_on_card():
             want = conv3d_cf_reference(x, pc, **kw)
             err = float((got - want).abs().max() / want.abs().max())
             assert err <= F32_BOUND, (cins, cout, epilogue, err)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+@pytest.mark.cuda
+def test_first_x3_matches_plain_on_card():
+    """H-first-x3 against conv3d_cf_reference (float32, TF32 off) at the
+    twin's cases, at W % 4 == 0 (16-byte loads and stores) and not (4-byte);
+    at 11 x 200 x 200, where blocks take several planes and the last block
+    fewer; and a first conv with C_out 40 on H-fwd-x3."""
+    old = _on_card()
+    try:
+        rng = np.random.default_rng(11)
+        for cin, cout, spatial, epilogue in FIRST_CASES + [
+                (1, 24, (11, 200, 200), "bias+elu+post"), (2, 16, (11, 200, 200), "bias+relu"),
+                (1, 40, (3, 8, 32), "bias+elu")]:
+            x, pc, kw = _first_case(rng, cin, cout, spatial, epilogue)
+            x, pc = x.cuda(), pack_conv(pc.w.cuda(), torch.float32)
+            kw = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+            kernel = "first_x3" if cout <= conv_cf.FIRST_MMA_MAX_COUT else "fwd_x3"
+            before = dict(LAUNCHES)
+            got = conv3d_cf(x, pc, **kw)
+            torch.cuda.synchronize()
+            assert [k for k in LAUNCHES if LAUNCHES[k] != before[k]] == [kernel]
+            want = conv3d_cf_reference(x, pc, **kw)
+            err = float((got - want).abs().max() / want.abs().max())
+            assert err <= F32_BOUND, (cin, cout, epilogue, err)
     finally:
         torch.backends.cudnn.allow_tf32 = old
 

@@ -7,7 +7,9 @@ same seeded random weights and synthetic inputs as ``chip_smoke.py``:
 - each float32 row of ``chip_smoke.py``'s kernel checks (``SHAPES`` and
   ``WGRAD_SHAPES``; the inputs of ``kernel_inputs``), through the
   checkout's ``conv3d_cf`` / ``conv3d_cf_wgrad``, ``KERNEL_REPS`` calls
-  timed with CUDA events;
+  timed with CUDA events; a row under ``HOST_BOUND_MS`` a call is bound by
+  the call's host path, and ``HOST_REPS`` calls of it are timed again on the
+  host's clock (wall time per call, the card synchronised once at the end);
 - the float32 flip-TTA predict network (``Predictor(compute_dtype=
   "float32").network``) on the clinical scan that pads to 192x224x192,
   ``NET_REPS`` calls timed with CUDA events;
@@ -18,7 +20,9 @@ same seeded random weights and synthetic inputs as ``chip_smoke.py``:
   ``torch.profiler`` for the device time of its conv kernels (``conv3d_*``)
   and of everything.
 
-Each process builds its checkout's kernels first.
+Each process builds its checkout's kernels first, then runs float32 matrix
+products for a few tenths of a second so that the first row is not timed on
+a card still raising its clocks.
 
     python3 tools/ab_float32.py PARENT_CHECKOUT .
 
@@ -34,6 +38,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +47,9 @@ ROOT = Path(__file__).resolve().parent.parent
 NET_REPS = 3
 STEPS = 8
 KERNEL_REPS = 10
+HOST_BOUND_MS = 0.1
+HOST_REPS = 1000
+WARM_MATMULS = 100  # float32 4096^2 products run before anything is timed
 
 
 def worker(checkout):
@@ -65,13 +73,24 @@ def worker(checkout):
     torch.backends.cuda.matmul.allow_tf32 = False
     conv_cf.build_kernels()
     dev = torch.device("cuda")
+    warm = torch.randn(4096, 4096, device=dev)  # brings the clocks up before the first row
+    for _ in range(WARM_MATMULS):
+        warm @ warm
+    torch.cuda.synchronize()
+    del warm
     rng = np.random.default_rng(0)
-    result = {"checkout": str(checkout), "kernel_ms": {}}
+    result = {"checkout": str(checkout), "kernel_ms": {}, "host_us": {}}
     gen = torch.Generator(device=dev).manual_seed(0)
     for name, _, cins, cout, spatial, fused, dtype in smoke.SHAPES:
         if dtype == torch.float32:
             kw = smoke.kernel_inputs(conv_cf, gen, cins, cout, spatial, fused, dtype)
             result["kernel_ms"][name] = smoke.cuda_ms(lambda: conv_cf.conv3d_cf(**kw), KERNEL_REPS)
+            if result["kernel_ms"][name] < HOST_BOUND_MS:
+                t0 = time.perf_counter()
+                for _ in range(HOST_REPS):
+                    conv_cf.conv3d_cf(**kw)
+                torch.cuda.synchronize()
+                result["host_us"][name] = (time.perf_counter() - t0) / HOST_REPS * 1e6
             del kw
     for ci, co, n, dtype in smoke.WGRAD_SHAPES:
         if dtype == torch.float32:
@@ -149,6 +168,11 @@ def main(checkouts):
         ms = {c: [r["kernel_ms"][row] for r in runs if r["checkout"] == c] for c in names}
         print(f"  {row:30s} " + "  ".join(f"{c}: {', '.join(f'{t:.3f}' for t in ms[c])} ms"
                                           for c in names), flush=True)
+    for row in dict.fromkeys(k for r in runs for k in r["host_us"]):
+        us = {c: [r["host_us"][row] for r in runs if r["checkout"] == c and row in r["host_us"]]
+              for c in names}
+        print(f"  {row:30s} host " + "  ".join(
+            f"{c}: {', '.join(f'{t:.1f}' for t in us[c])} us/call" for c in names), flush=True)
     for checkout in names:
         mine = [r for r in runs if r["checkout"] == checkout]
         net = [t for r in mine for t in r["predict_network"]["ms"]]
