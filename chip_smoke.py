@@ -41,7 +41,11 @@ path at full width (24 features, 5 levels, seeded random weights and data):
   against the CPU; lab2im's ``ImageGenerator`` on the 160³ label maps
   (timed with ``utils/profiling.StepTimer``, one sample under its
   ``trace``); random dilation and erosion against scipy; the C++ NIfTI
-  loader against the numpy path; the tutorial entry points in smoke mode.
+  loader against the numpy path; the tutorial entry points in smoke mode;
+- the port's last surface: ``mimic_acquisition`` with noise on the
+  acquisition grid at the adversarial generator's 128^3 shape and the
+  boundary-weighted Dice on 2-D maps, each on the card against the CPU, and
+  ``BrainGenerator`` built without ``device=`` (the card by default).
 
     python3 chip_smoke.py
 
@@ -170,6 +174,10 @@ AE_BOUND = 1e-4       # relative L2, float32 card (TF32 off) vs CPU
 LAB2IM_SAMPLES = 5    # timed ImageGenerator samples on the 160^3 label maps
 TUTORIAL_LIMIT_S = 90.0  # all nine tutorials in smoke mode (6.3-7.9 s on an H100)
 TUTORIAL_MAP = 96     # the tutorials' synthetic label maps (96^3; 64^3 smoke crops)
+# the port's last surface (surface_phase): the card against the CPU on the same draws
+SURFACE_BOUND = 1e-5  # relative L2 (float32 summation order only)
+ACQ_NOISE_STD = 0.05  # the acquisition noise's largest std, on intensities in [0, 1)
+DICE_SHAPE = (4, 256, 256, 8)  # a batch of 2-D one-hot maps: B, H, W, labels
 TUTORIALS = ("tutorial_1_sr_real", "tutorial_2_sr_synthetic", "tutorial_3_synthesis_real",
              "tutorial_4_synthesis_synthetic", "tutorial_5_sr_synthesis_multimodal_real",
              "tutorial_6_sr_synthesis_multimodal_synthetic", "tutorial_8_estimate_priors",
@@ -1716,6 +1724,98 @@ def tutorials_phase(conv_cf, root):
     return {"launches": launches, "summary": dict(seconds=seconds, seconds_all=total)}
 
 
+def surface_phase(conv_cf, root, pm, ps):
+    """What the port gained last, on the card against the CPU on the same
+    draws: ``mimic_acquisition`` with noise on the acquisition grid at the
+    adversarial generator's shape (ADV_CONFIG: a 1-channel volume on the 1 mm
+    atlas grid up-sampled to 128^3, a resolution drawn as the generator draws
+    it), the noise taken always and by a 0.95 coin; the boundary-weighted Dice
+    on a batch of 2-D one-hot maps; and ``BrainGenerator`` built without
+    ``device=``, which must land on the card and generate.  No conv kernel
+    runs here."""
+    from synthsr_tpu_torch.io.labels import get_list_labels
+    from synthsr_tpu_torch.ops.losses import dice_loss
+    from synthsr_tpu_torch.synth import augment
+    from synthsr_tpu_torch.synth.brain_generator import BrainGenerator
+
+    phase("the port's last surface on the card: acquisition noise, 2-D boundary Dice, "
+          "BrainGenerator's default device")
+    conv_cf.reset_launch_counts()
+    labels, n_neutral = get_list_labels(
+        label_list=os.path.join(root, "generation_labels.npy"),
+        labels_dir=os.path.join(root, "labels"), FS_sort=True)
+    t0 = time.perf_counter()
+    bg = BrainGenerator(os.path.join(root, "labels"), pm, ps, generation_labels=labels,
+                        n_neutral_labels=n_neutral, output_div_by_n=32, seed=2, **ADV_CONFIG)
+    image, target = bg.generate_brain()
+    gen_s = time.perf_counter() - t0
+    print(f"  BrainGenerator() without device=: on {bg.device}; generate_brain {gen_s:.2f} s "
+          f"(first call), image {image.shape}, target {target.shape}")
+    require(bg.device.type == "cuda", bg.device)
+    require(image.shape[:3] == tuple(bg.model_output_shape), (image.shape, bg.model_output_shape))
+    require(np.isfinite(image).all() and np.isfinite(target).all(), "non-finite generated pair")
+    out = {"brain_generator": dict(device=str(bg.device), first_call_s=gen_s,
+                                   image_shape=list(image.shape))}
+
+    cfg = bg.cfg
+    crop, shape, atlas = list(cfg.crop_shape), list(cfg.out_shape), cfg.atlas_res3
+    cpu = torch.Generator().manual_seed(18)
+    max_res = np.array([cfg.max_res_iso] * 3, np.float32)
+    res = augment.sample_resolution(cpu, list(atlas), max_res_iso=max_res,
+                                    max_res_aniso=max_res, return_thickness=False)
+    x = torch.rand((*crop, 1), generator=cpu)
+    down = augment.acquisition_down_shape(crop, atlas, atlas)
+    for name, prob in (("always", 1.0), ("coin 0.95", 0.95)):
+        noise = augment.sample_acquisition_noise(cpu, down, 1, ACQ_NOISE_STD, prob)
+        on_card = [x.cuda(), res.cuda(), tuple(None if a is None else a.cuda() for a in noise)]
+
+        def acquire(x_, res_, noise_):
+            return augment.mimic_acquisition(x_, res_, atlas, shape, build_dist_map=True,
+                                             min_subsample_res=atlas, noise=noise_)
+
+        t0 = time.perf_counter()
+        want = acquire(x, res, noise)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        got = acquire(*on_card)
+        ms = cuda_ms(lambda: acquire(*on_card), 3)
+        rel = max(rel_l2(g.cpu(), w) for g, w in zip(got, want))
+        taken = noise[2] is None or bool(noise[2])
+        print(f"  mimic_acquisition + noise ({name}; taken {taken}): {crop} at "
+              f"{res.tolist()} mm (static down grid {down}) -> {shape}; card vs CPU relative "
+              f"L2 {rel:.3e} (bound {SURFACE_BOUND:.0e}); {ms:.3f} ms on the card, "
+              f"{cpu_ms:.1f} ms on the CPU")
+        require(tuple(got[0].shape) == (*shape, 1) and bool(torch.isfinite(got[0]).all()),
+                got[0].shape)
+        require(np.isfinite(rel) and rel <= SURFACE_BOUND, (name, rel))
+        out[f"acquisition_noise_{name.split()[0]}"] = dict(
+            resolution=res.tolist(), taken=taken, rel_l2=rel, ms=ms, cpu_ms=cpu_ms)
+
+    g = torch.Generator().manual_seed(19)
+    b, h, w, c = DICE_SHAPE
+    lab = torch.randint(0, c, (b, h // 8, w // 8), generator=g)
+    lab.view(b, -1)[:, :c] = torch.arange(c)  # every label in every map: finite inverse volumes
+    gt = torch.nn.functional.one_hot(lab.repeat_interleave(8, 1).repeat_interleave(8, 2),
+                                     c).float()
+    pred = torch.softmax(torch.randn((b, h, w, c), generator=g), -1)
+    kw = dict(class_weights=-1, boundary_weights=2.0, boundary_dist=3)
+    t0 = time.perf_counter()
+    want = float(dice_loss(gt, pred, **kw))
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    gt_card, pred_card = gt.cuda(), pred.cuda()
+    got = float(dice_loss(gt_card, pred_card, **kw))
+    ms = cuda_ms(lambda: dice_loss(gt_card, pred_card, **kw), 3)
+    rel = abs(got - want) / abs(want)
+    print(f"  dice_loss, boundary weights 2.0 within 3 voxels, inverse-volume class weights, "
+          f"on {DICE_SHAPE}: {got:.7f} on the card vs {want:.7f} on the CPU, relative "
+          f"{rel:.3e} (bound {SURFACE_BOUND:.0e}); {ms:.3f} ms on the card, {cpu_ms:.1f} ms "
+          f"on the CPU")
+    require(np.isfinite(rel) and rel <= SURFACE_BOUND, rel)
+    out["dice_2d"] = dict(shape=list(DICE_SHAPE), loss=got, rel=rel, ms=ms, cpu_ms=cpu_ms)
+    launches = dict(conv_cf.LAUNCHES)
+    require(launches == NO_LAUNCHES, launches)
+    return out
+
+
 def phantom(shape, zooms, ct, rng):
     """Ellipsoids of random intensity plus noise, in HU for a CT."""
     grid = np.meshgrid(*[(np.arange(n) - n / 2) * z for n, z in zip(shape, zooms)],
@@ -2060,6 +2160,7 @@ def main():
         lab2im = lab2im_phase(root)
         native = native_phase(root)
         tutorials = tutorials_phase(conv_cf, root)
+        surface = surface_phase(conv_cf, root, pm, ps)
     options = options_phase()
     head3 = head3_phase(conv_cf)
     autoencoder = autoencoder_phase()
@@ -2107,7 +2208,8 @@ def main():
                       "adversarial_segmenter": adv_seg["summary"], "unet_options": options,
                       "fast_forward_3_label": head3["summary"], "halo_world_1": halo,
                       "autoencoder": autoencoder, "lab2im": lab2im, "label_ops": label_ops,
-                      "native_loader": native, "tutorials": tutorials["summary"]}))
+                      "native_loader": native, "tutorials": tutorials["summary"],
+                      "surface": surface}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -25,9 +25,9 @@ import torch
 from .linops import apply_axis_ops, sample_matrix
 
 
-def ndgrid(shape, device=None):
-    """len(shape) float32 index grids, 'ij' indexing."""
-    return list(torch.meshgrid(*[torch.arange(s, dtype=torch.float32, device=device)
+def ndgrid(shape, device=None, dtype=torch.float32):
+    """len(shape) index grids of ``dtype``, 'ij' indexing."""
+    return list(torch.meshgrid(*[torch.arange(s, dtype=dtype, device=device)
                                  for s in shape], indexing="ij"))
 
 

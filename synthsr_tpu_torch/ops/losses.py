@@ -81,12 +81,13 @@ def dice_loss(gt, pred, class_weights=None, boundary_weights=0, boundary_dist=3,
     bottom = torch.square(gt) + torch.square(pred)
     bw = None
     if boundary_weights:
-        if ndims != 3:
-            raise NotImplementedError("boundary weights are ported for 3-D maps only")
         k = 2 * boundary_dist + 1
-        # SAME window sum / k³ (zero padding): a box mean counting the pad
-        avg = F.avg_pool3d(gt.permute(0, 4, 1, 2, 3), k, stride=1, padding=k // 2,
-                           count_include_pad=True).permute(0, 2, 3, 4, 1)
+        # JAX's SAME window sum / k^ndims (zero padding) is the box mean that
+        # counts the pad only for an odd window (SAME pads an even one unevenly)
+        assert k % 2 == 1, k
+        pool = (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[ndims - 1]
+        avg = pool(gt.movedim(-1, 1), k, stride=1, padding=k // 2,
+                   count_include_pad=True).movedim(1, -1)
         boundaries = ((avg > 0.0) & (avg < (1.0 / ndims - 1e-4))).to(torch.float32)
         if skip_background:
             boundaries[..., 0] = 0.0

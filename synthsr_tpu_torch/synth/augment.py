@@ -244,9 +244,13 @@ def sample_conditional_gmm(labels, means, stds, generation_labels, noise):
 # ---------------------------------------------------------------------------
 
 def sample_resolution(gen, min_resolution, max_res_iso=None, max_res_aniso=None,
-                      prob_iso=0.1, prob_min=0.05):
+                      prob_iso=0.1, prob_min=0.05, return_thickness=True):
     """Random acquisition resolution (3,) and slice thickness (3,), with the
-    reference's per-axis-independent draws in the 'isotropic' branch (:625)."""
+    reference's per-axis-independent draws in the 'isotropic' branch (:625).
+
+    With ``return_thickness=False`` only the resolution is returned, but the
+    thickness is still drawn: JAX's function splits its key for it either
+    way, and here skipping the draw would shift every later draw of ``gen``."""
     min_res = torch.as_tensor(np.asarray(min_resolution, np.float32), device=gen.device)
     max_iso = None if max_res_iso is None else np.asarray(max_res_iso, np.float32)
     max_aniso = None if max_res_aniso is None else np.asarray(max_res_aniso, np.float32)
@@ -270,7 +274,8 @@ def sample_resolution(gen, min_resolution, max_res_iso=None, max_res_aniso=None,
         aniso = uniform(gen, (3,), min_res, as_t(max_aniso))
         res = torch.where(bernoulli(gen, prob_iso), iso, torch.where(mask, aniso, min_res))
         res = torch.where(bernoulli(gen, prob_min), min_res, res)
-    return res, uniform(gen, (3,), min_res, res)
+    thick = uniform(gen, (3,), min_res, res)
+    return (res, thick) if return_thickness else res
 
 
 # ---------------------------------------------------------------------------
@@ -300,36 +305,69 @@ def gaussian_blur(x, sigma, factors=None, blur_range=None, max_sigma=None):
 # MimicAcquisition (reference lab2im/layers.py:835-999)
 # ---------------------------------------------------------------------------
 
-def mimic_acquisition(x, resolution, volume_res, resample_shape, build_dist_map=False,
-                      min_subsample_res=None):
-    """Nearest-downsample to the drawn acquisition grid, then linear re-upsample
-    to ``resample_shape``, as per-axis matrices on the static maximum down
-    grid (edge semantics of augment.py:431-436).  The JAX function's optional
-    noise on the acquisition grid, which the generator never adds, is not
-    ported."""
-    spatial = x.shape[:3]
-    dev = x.device
+def acquisition_down_shape(spatial, volume_res, min_subsample_res=None):
+    """The static down grid of :func:`mimic_acquisition` for a volume of
+    ``spatial`` voxels at ``volume_res``: its size at the finest resolution
+    that can be drawn, ``min_subsample_res`` (default ``volume_res``)."""
     volume_res = np.asarray(volume_res, np.float32)
     if min_subsample_res is None:
         min_subsample_res = volume_res
-    down_static = [int(spatial[d] * volume_res[d] / np.asarray(min_subsample_res)[d])
-                   for d in range(3)]
+    return [int(spatial[d] * volume_res[d] / np.asarray(min_subsample_res)[d])
+            for d in range(3)]
+
+
+def sample_acquisition_noise(gen, down_shape, n_channels, noise_std, prob_noise=0.95):
+    """The draws of :func:`mimic_acquisition`'s noise on the acquisition grid
+    (reference :876, :953-961), in the order of JAX's key split
+    (augment.py:484-490): a per-channel std ~ U(0, ``noise_std``) of shape
+    (1, 1, 1, C), N(0, 1) over the whole static down grid ``down_shape``
+    (:func:`acquisition_down_shape`) times C, and the coin U(0, 1) <
+    ``prob_noise``, drawn only when ``prob_noise`` < 1 (else None: always)."""
+    std = uniform(gen, (1, 1, 1, n_channels), 0.0, noise_std)
+    noise = normal(gen, (*down_shape, n_channels))
+    take = bernoulli(gen, prob_noise) if prob_noise < 1 else None
+    return std, noise, take
+
+
+def mimic_acquisition(x, resolution, volume_res, resample_shape, build_dist_map=False,
+                      min_subsample_res=None, noise=None):
+    """Nearest-downsample to the drawn acquisition grid, then linear re-upsample
+    to ``resample_shape``, as per-axis matrices on the static maximum down
+    grid (edge semantics of augment.py:431-436).
+
+    ``noise``: the draws of :func:`sample_acquisition_noise` (std, N(0, 1),
+    coin), or None.  Without them the two resamplings compose into one
+    matrix per axis, as in the generator, which adds no noise.  With them the
+    down grid is materialised and ``std·noise`` is added to all of it where
+    the coin says so (its rows beyond the drawn size, edge replicas, get
+    noise too, as in JAX) before the up-sampling (reference :953-961)."""
+    spatial = x.shape[:3]
+    dev = x.device
+    volume_res = np.asarray(volume_res, np.float32)
+    down_static = acquisition_down_shape(spatial, volume_res, min_subsample_res)
     resolution = torch.as_tensor(resolution, dtype=torch.float32, device=dev)
-    mats, dist_axes = [], []
+    dmats, umats, dist_axes = [], [], []
     for d in range(3):
         in_d = spatial[d]
         down_d = torch.floor(in_d * float(volume_res[d]) / resolution[d])
         g = torch.arange(down_static[d], dtype=torch.float32, device=dev)
-        dmat = linops.sample_matrix(torch.clamp(g / (down_d / in_d), 0.0, in_d - 1.0), in_d,
-                                    method="nearest")
+        dmats.append(linops.sample_matrix(torch.clamp(g / (down_d / in_d), 0.0, in_d - 1.0),
+                                          in_d, method="nearest"))
         u = torch.arange(resample_shape[d], dtype=torch.float32, device=dev)
         up_coords = torch.clamp(u / (resample_shape[d] / down_d), 0.0, down_static[d] - 1.0)
-        umat = linops.sample_matrix(up_coords, down_static[d], method="linear")
-        mats.append(umat @ dmat)
+        umats.append(linops.sample_matrix(up_coords, down_static[d], method="linear"))
         if build_dist_map:
             dist_axes.append(torch.minimum(up_coords - torch.floor(up_coords),
                                            torch.ceil(up_coords) - up_coords) * resolution[d])
-    out = linops.apply_axis_ops(x, mats)
+    if noise is None:
+        out = linops.apply_axis_ops(x, [um @ dm for um, dm in zip(umats, dmats)])
+    else:
+        std, normal_draw, take = (None if a is None else torch.as_tensor(a, device=dev)
+                                  for a in noise)
+        down = linops.apply_axis_ops(x, dmats)
+        noisy = down + std * normal_draw
+        down = noisy if take is None else torch.where(take, noisy, down)
+        out = linops.apply_axis_ops(down, umats)
     if not build_dist_map:
         return out
     dist = torch.sqrt(dist_axes[0][:, None, None] ** 2 + dist_axes[1][None, :, None] ** 2

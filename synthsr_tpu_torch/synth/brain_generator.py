@@ -4,7 +4,8 @@
 
 Label maps (and GMM parameters) stream from the numpy host pipeline
 (``synth/model_inputs.py``); each example runs through
-:class:`~.labels_to_image.Generator` on ``device`` with a seeded
+:class:`~.labels_to_image.Generator` on ``device`` (the GPU unless the
+caller passes "cpu"; without a GPU the constructor raises) with a seeded
 ``torch.Generator``; ``generate_brain`` returns numpy (image, target)
 re-aligned to the first label map's orientation.
 """
@@ -32,7 +33,10 @@ class BrainGenerator:
                  nonlin_std=3.0, nonlin_shape_factor=0.0625, simulate_registration_error=True,
                  randomise_res=False, data_res=None, thickness=None, downsample=False,
                  blur_range=1.15, build_reliability_maps=False, bias_field_std=0.3,
-                 bias_shape_factor=0.025, seed=None, device="cpu"):
+                 bias_shape_factor=0.025, seed=None, device=None):
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
         self.labels_paths = list_images_in_folder(labels_dir)
         self.images_paths = None
         if images_dir is not None:
@@ -86,7 +90,6 @@ class BrainGenerator:
             build_reliability_maps=build_reliability_maps, blur_range=blur_range,
             bias_field_std=bias_field_std, bias_shape_factor=bias_shape_factor)
 
-        self.device = torch.device(device)
         self._rng = np.random.default_rng(seed)
         self.torch_gen = torch.Generator(device=self.device)
         self.torch_gen.manual_seed(int(self._rng.integers(2 ** 31)) if seed is not None

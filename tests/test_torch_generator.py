@@ -307,6 +307,87 @@ def test_blur_resample_and_acquisition_match_jax():
         _close(g, w)
 
 
+def _replay_acquisition_noise(key, down_shape, n_channels, noise_std, prob_noise):
+    """The draws of JAX mimic_acquisition's noise from ``key``, split as
+    augment.py:484-490 splits it, as numpy."""
+    k_std, k_noise, k_coin = jax.random.split(key, 3)
+    std = jax.random.uniform(k_std, (1, 1, 1, n_channels), maxval=noise_std)
+    noise = jax.random.normal(k_noise, (*down_shape, n_channels))
+    take = np.array(jax.random.uniform(k_coin, ()) < prob_noise) if prob_noise < 1 else None
+    return np.array(std), np.array(noise), take
+
+
+def _key_with_coin(prob_noise, want):
+    """The first PRNGKey(seed) whose acquisition-noise coin comes out ``want``."""
+    for seed in range(100):
+        key = jax.random.PRNGKey(seed)
+        if bool(jax.random.uniform(jax.random.split(key, 3)[2], ()) < prob_noise) == want:
+            return key
+    raise AssertionError("no key found")
+
+
+# (prob_noise, the coin wanted, build_dist_map, min_subsample_res)
+ACQUISITION_NOISE_CASES = {
+    "always": (1.0, None, True, [0.8, 1.0, 1.0]),
+    "coin_taken": (0.6, True, False, None),
+    "coin_refused": (0.6, False, True, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ACQUISITION_NOISE_CASES))
+def test_acquisition_noise_matches_jax(case):
+    """mimic_acquisition with noise on the acquisition grid, the port on JAX's
+    replayed draws.  Along y and z the drawn grid (4 and 9 rows) is below the
+    static one (18 and 20): the edge-replicated rows get noise too; along x
+    min_subsample_res 0.8 makes the static grid (20) larger than the input."""
+    prob_noise, coin, dist_map, min_sub = ACQUISITION_NOISE_CASES[case]
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(16, 18, 20, 2)).astype(np.float32)
+    res = np.array([1.0, 3.7, 2.2], np.float32)
+    vol_res = [1.0, 1.0, 1.0]
+    key = jax.random.PRNGKey(17) if coin is None else _key_with_coin(prob_noise, coin)
+    down = augment.acquisition_down_shape(x.shape[:3], vol_res, min_sub)
+    assert down == ([20, 18, 20] if min_sub else [16, 18, 20])
+    draws = _replay_acquisition_noise(key, down, 2, 3.0, prob_noise)
+    assert draws[2] is None or bool(draws[2]) == coin
+    got = augment.mimic_acquisition(_t(x), _t(res), vol_res, [16, 18, 20],
+                                    build_dist_map=dist_map, min_subsample_res=min_sub,
+                                    noise=draws)
+    want = jaug.mimic_acquisition(jnp.asarray(x), jnp.asarray(res), vol_res, [16, 18, 20],
+                                  build_dist_map=dist_map, min_subsample_res=min_sub,
+                                  noise_std=3.0, prob_noise=prob_noise, key=key)
+    plain = augment.mimic_acquisition(_t(x), _t(res), vol_res, [16, 18, 20],
+                                      build_dist_map=dist_map, min_subsample_res=min_sub)
+    got, want, plain = [(o if dist_map else (o,)) for o in (got, want, plain)]
+    for g, w in zip(got, want):
+        _close(g, w, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got[1:], plain[1:])  # the dist map takes no noise
+    assert (np.abs(np.asarray(got[0]) - np.asarray(plain[0])).max() > 0.1) == (coin is not False)
+
+
+@pytest.mark.parametrize("case", ["both", "iso_only", "aniso_only"])
+def test_sample_resolution_without_thickness_matches_jax(case):
+    """return_thickness=False returns the resolution alone, as JAX's does; the
+    thickness is still drawn, so the generator's stream stays where
+    return_thickness=True leaves it (JAX splits the key for it either way)."""
+    from test_distributions import MAX_ANISO, MAX_ISO, MIN_RES
+
+    kw = dict(max_res_iso=None if case == "aniso_only" else MAX_ISO,
+              max_res_aniso=None if case == "iso_only" else MAX_ANISO)
+    key = jax.random.PRNGKey(21)
+    jres = jaug.sample_resolution(key, MIN_RES, return_thickness=False, **kw)
+    jboth = jaug.sample_resolution(key, MIN_RES, **kw)
+    assert not isinstance(jres, tuple)
+    np.testing.assert_array_equal(jres, jboth[0])
+    g1, g2 = torch.Generator().manual_seed(22), torch.Generator().manual_seed(22)
+    res = augment.sample_resolution(g1, MIN_RES, return_thickness=False, **kw)
+    both = augment.sample_resolution(g2, MIN_RES, **kw)
+    assert not isinstance(res, tuple)
+    assert tuple(res.shape) == jres.shape and res.dtype == torch.float32 == _t(jres).dtype
+    assert torch.equal(res, both[0])
+    assert torch.equal(torch.rand(4, generator=g1), torch.rand(4, generator=g2))
+
+
 # ---------------------------------------------------------------------------
 # the whole generator (exact_warp=True semantics)
 # ---------------------------------------------------------------------------
@@ -423,7 +504,7 @@ def test_brain_generator_facade(tmp_path):
               prior_means=None, prior_stds=None, input_channels=True, output_channel=0,
               output_shape=24, data_res=np.array([1.0, 1.0, 3.0]),
               thickness=np.array([1.0, 1.0, 3.0]), downsample=True,
-              build_reliability_maps=True, seed=11)
+              build_reliability_maps=True, seed=11, device="cpu")
     g1, g2 = BrainGenerator(**kw), BrainGenerator(**kw)
     image, target = g1.generate_brain()
     assert image.shape == (24, 24, 24, 2) and target.shape == (24, 24, 24)
@@ -434,6 +515,23 @@ def test_brain_generator_facade(tmp_path):
     np.testing.assert_array_equal(image, image2)
     np.testing.assert_array_equal(target, target2)
     assert np.abs(g1.generate_brain()[0] - image).max() > 1e-4
+
+
+def test_brain_generator_defaults_to_the_card(tmp_path):
+    """Without ``device`` the facade runs on the GPU, and without one it
+    raises instead of falling back to the CPU."""
+    from synthsr_tpu_torch.synth.brain_generator import BrainGenerator
+
+    lab = np.zeros((16, 16, 16), np.int32)
+    lab[4:12, 4:12, 4:12] = 2
+    save_volume(lab, np.eye(4), None, str(tmp_path / "map.nii.gz"))
+    kw = dict(labels_dir=str(tmp_path), prior_means=None, prior_stds=None, seed=0)
+    if torch.cuda.is_available():
+        assert BrainGenerator(**kw).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            BrainGenerator(**kw)
+    assert BrainGenerator(**kw, device="cpu").device.type == "cpu"
 
 
 # ---------------------------------------------------------------------------
@@ -505,3 +603,19 @@ def test_port_gmm_sampler_and_gamma_marginals():
         x, augment.sample_intensity_augmentation(g, x.shape, gamma_std=0.4))[1, 0, 0, 0])
     ref = 0.5 ** np.exp(np.random.default_rng(6).normal(0.0, 0.4, N))
     assert _ks(vals, ref) > P_MIN
+
+
+def test_port_acquisition_noise_marginals():
+    """The acquisition-noise draws: per-channel std ~ U(0, noise_std),
+    N(0, 1) noise, the coin taken at rate prob_noise, none drawn at 1."""
+    from test_distributions import N, P_MIN, _ks
+
+    std, noise, take = _port_draws(lambda g: augment.sample_acquisition_noise(
+        g, (2, 3, 2), 2, 3.0, prob_noise=0.7))
+    assert std.shape == (N, 1, 1, 1, 2) and noise.shape == (N, 2, 3, 2, 2)
+    rng = np.random.default_rng(8)
+    for c in range(2):
+        assert _ks(std[:, 0, 0, 0, c], rng.uniform(0.0, 3.0, N)) > P_MIN, c
+    assert _ks(noise[:, 1, 2, 0, 1], rng.normal(size=N)) > P_MIN
+    assert abs(take.mean() - 0.7) < 4.5 * np.sqrt(0.7 * 0.3 / N)
+    assert augment.sample_acquisition_noise(torch.Generator(), (2, 3, 2), 2, 3.0, 1.0)[2] is None

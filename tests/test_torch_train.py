@@ -152,8 +152,26 @@ def _loss_inputs(rng, c=3):
     return gt, pred
 
 
+def _one_hot_regions(rng, spatial, c=3, block=3):
+    """One-hot maps (2, *spatial, c) of blocky label regions, so that the
+    boundary weights see boundaries and interiors."""
+    coarse = rng.integers(0, c, size=(2, *[-(-s // block) for s in spatial]))
+    for ax in range(1, len(spatial) + 1):
+        coarse = np.repeat(coarse, block, axis=ax)
+    labels = coarse[(slice(None),) + tuple(slice(0, s) for s in spatial)]
+    return np.eye(c, dtype=np.float32)[labels]
+
+
+# boundary-weighted Dice on 1-D and 2-D maps: (spatial, boundary_dist, class_weights)
+_DICE_ND = {"dice_boundary_1d_d1": ((40,), 1, [1, 2, 3]),
+            "dice_boundary_1d_d3": ((40,), 3, -1),
+            "dice_boundary_2d_d1": ((18, 20), 1, -1),
+            "dice_boundary_2d_d3": ((18, 20), 3, [1, 2, 3])}
+
+
 @pytest.mark.parametrize("case", ["l1", "l2", "laplace", "ssim", "dice", "dice_weighted",
-                                  "dice_boundary", "weighted_l2", "cross_entropy", "moment"])
+                                  "dice_boundary", *_DICE_ND, "weighted_l2", "cross_entropy",
+                                  "moment"])
 def test_losses_match_jax(case):
     from synthsr_tpu.ops import losses as jl
     from synthsr_tpu_torch.ops import losses as tl
@@ -161,6 +179,10 @@ def test_losses_match_jax(case):
     rng = np.random.default_rng(11)
     gt, pred = _loss_inputs(rng)
     one = (gt[..., :1], pred[..., :1])
+    if case in _DICE_ND:
+        spatial, dist, cw = _DICE_ND[case]
+        pred = rng.dirichlet(np.ones(3), size=(2, *spatial)).astype(np.float32)
+        gt = _one_hot_regions(rng, spatial)
     calls = {
         "l1": ("l1_loss", one, {}), "l2": ("l2_loss", one, {}),
         "laplace": ("laplace_nll", (pred[..., :1], pred[..., 1:2], gt[..., :1]), {}),
@@ -169,6 +191,8 @@ def test_losses_match_jax(case):
         "dice_weighted": ("dice_loss", (gt, pred), dict(class_weights=-1)),
         "dice_boundary": ("dice_loss", ((gt > 0.5).astype(np.float32), pred),
                           dict(boundary_weights=2.0, boundary_dist=1, class_weights=[1, 2, 3])),
+        **{k: ("dice_loss", (gt, pred), dict(boundary_weights=2.0, boundary_dist=v[1],
+                                             class_weights=v[2])) for k, v in _DICE_ND.items()},
         "weighted_l2": ("weighted_l2_loss", (gt, pred), {}),
         "cross_entropy": ("cross_entropy_loss", (gt, pred), dict(class_weights=[1, 2, 3])),
         "moment": ("moment_loss", (gt, pred), {}),
