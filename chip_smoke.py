@@ -1,9 +1,11 @@
 """GPU smoke run of the PyTorch port: builds the hand-written CUDA kernels,
 holds each against its plain PyTorch version (and times the one PyTorch call
 that computes the same function, and the card's bound) at the shapes of the
-port's main paths: the tensor-core H-first-mma, H-fwd-mma and H-wgrad-mma
-in bf16, and the split-TF32 tensor-core H-first-x3, H-fwd-x3 and H-wgrad-x3
-in float32.  Then it drives each
+port's main paths: H-first-mma, H-fwd-wg (wgmma and TMA, timed in turns
+with H-fwd-mma at every row its gate gives it: every conv of the 256³
+predict pass, whose Σ launches × ms is printed beside the network's time),
+H-fwd-mma and H-wgrad-mma in bf16, and the split-TF32 tensor-core
+H-first-x3, H-fwd-x3 and H-wgrad-x3 in float32.  Then it drives each
 path at full width (24 features, 5 levels, seeded random weights and data):
 
 - predict: ``synthsr_tpu_torch.cli.predict.main`` with flip TTA over three
@@ -112,30 +114,35 @@ FIRST_X3_SOURCE = "synthsr_tpu_torch/csrc/conv3d_first_x3.cu"
 X3_SOURCE = "synthsr_tpu_torch/csrc/conv3d_fwd_x3.cu"
 WGRAD_X3_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad_x3.cu"
 MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_fwd_mma.cu"
+WG_SOURCE = "synthsr_tpu_torch/csrc/conv3d_fwd_wg.cu"
 FIRST_MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_first_mma.cu"
 WGRAD_MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad_mma.cu"
 PALLAS = "synthsr_tpu/ops/conv_pallas.py"
 NO_LAUNCHES = {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
-               "wgrad_x3": 0}
+               "wgrad_x3": 0, "fwd_wg": 0}
+# Every bf16 conv below that is not a first conv takes H-fwd-wg
+# (conv_cf.fwd_wg_ok: C_out % 8 == 0, no accum) but the critic's 32->1
+# input gradient (C_out 1), which takes H-fwd-mma.
 # kernel launches per train step of the shipped net (4 input channels, so no
 # first-conv kernel): 18 forward convs + 17 input gradients (not the first conv's) on
-# H-fwd-mma; 18 weight gradients + 4 for the decoders' second sources on
+# H-fwd-wg; 18 weight gradients + 4 for the decoders' second sources on
 # H-wgrad-mma; in float32 the same counts on H-fwd-x3 and H-wgrad-x3
-TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_mma": 35, "wgrad_mma": 22}
+TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_wg": 35, "wgrad_mma": 22}
 TRAIN_F32_LAUNCHES = {**NO_LAUNCHES, "fwd_x3": 35, "wgrad_x3": 22}
 TRAIN_F32_STEPS = 2
 # kernel launches of one critic update: the generator's fake (1 first_mma + 17
-# fwd_mma); the critic's first conv on target and fake (2 first_mma) and its
+# fwd_wg); the critic's first conv on target and fake (2 first_mma) and its
 # weight gradients (2 wgrad_mma; the input is detached: no dx); the gradient
-# penalty's program, forward: 4 stride-1 trunk convs (1 first_mma + 3 fwd_mma)
-# and 4 transposed convs (4 fwd_mma), backward: those transposed convs' dx (1
-# first_mma for 1->32, 3 fwd_mma) and weight gradients (4 wgrad_mma); the trunk
-# gets no gradient from the penalty (LeakyReLU's slope is piecewise constant)
-ADV_DISC_LAUNCHES = {**NO_LAUNCHES, "first_mma": 5, "fwd_mma": 27, "wgrad_mma": 6}
-# of one generator update: the train forward (1 first_mma + 17 fwd_mma) and
-# backward (17 dx fwd_mma, 22 wgrad_mma); the critic's first conv on the fake
+# penalty's program, forward: 4 stride-1 trunk convs (1 first_mma + 3 fwd_wg)
+# and 4 transposed convs (3 fwd_wg, and the 32->1 on fwd_mma), backward: those
+# transposed convs' dx (1 first_mma for 1->32, 3 fwd_wg) and weight gradients
+# (4 wgrad_mma); the trunk gets no gradient from the penalty (LeakyReLU's slope
+# is piecewise constant)
+ADV_DISC_LAUNCHES = {**NO_LAUNCHES, "first_mma": 5, "fwd_wg": 26, "fwd_mma": 1, "wgrad_mma": 6}
+# of one generator update: the train forward (1 first_mma + 17 fwd_wg) and
+# backward (17 dx fwd_wg, 22 wgrad_mma); the critic's first conv on the fake
 # (1 first_mma) and its dx, 32->1 (1 fwd_mma; the critic is frozen: no wgrad)
-ADV_GEN_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_mma": 35, "wgrad_mma": 22}
+ADV_GEN_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_wg": 34, "fwd_mma": 1, "wgrad_mma": 22}
 # per 10:1 cycle; the float32 run (one critic and one generator update) takes
 # the same counts on H-first-x3, H-fwd-x3 and H-wgrad-x3
 ADV_LAUNCHES = {k: ADV_RATIO * ADV_DISC_LAUNCHES[k] + ADV_GEN_LAUNCHES[k] for k in NO_LAUNCHES}
@@ -145,13 +152,13 @@ ADV_F32_LAUNCHES = {**NO_LAUNCHES, "first_x3": 7, "fwd_x3": 62, "wgrad_x3": 28}
 # backward pass (every conv sits in a checkpointed level), 17 input gradients
 # and 22 weight gradients; the frozen segmenter's convs are cuDNN's.  Counted
 # on the CPU with the dispatch gate mirrored (each would-be launch is one call
-# of the plain version); with remat=False 36 + 34 on H-fwd-mma
-SEG_TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_mma": 106, "wgrad_mma": 44}
+# of the plain version); with remat=False 36 + 34 on H-fwd-wg
+SEG_TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_wg": 106, "wgrad_mma": 44}
 SEG_TRAIN_STEPS = 2   # steps per epoch of the segmenter run (1 epoch + a resume to 2)
 SEG_STEP_REPS = 3     # timed rounds of the segmenter step's remat variants, in turns
 # a fast forward with a 3-label softmax head: the shipped net's 1 + 17 convs;
 # the likelihood runs after the last conv in float32 (it cannot fold)
-HEAD3_LAUNCHES = {**NO_LAUNCHES, "first_mma": 1, "fwd_mma": 17}
+HEAD3_LAUNCHES = {**NO_LAUNCHES, "first_mma": 1, "fwd_wg": 17}
 # U-Net options that train on the plain path (cuDNN), one step each at 64^3
 # in float32 against the same step on the CPU
 OPTIONS = [("residual levels, dilation 2", dict(use_residuals=True, dilation_rate_mult=2)),
@@ -187,30 +194,38 @@ SHAPES = [
     ("2->24 @256^3", "first_mma", (2,), 24, (256, 256, 256), "bias+elu", BF16),
     # Hyperfine's first conv at its padded 192x256x160 (W = 160: five 32-wide tiles)
     ("2->24 @192x256x160", "first_mma", (2,), 24, (192, 256, 160), "bias+elu", BF16),
-    ("24->24 @256^3", "fwd_mma", (24,), 24, (256, 256, 256), "bias+elu", BF16),
-    ("[24,48]->24 @256^3", "fwd_mma", (24, 48), 24, (256, 256, 256), "bias+elu", BF16),
-    ("24->24 @256^3 +post+head", "fwd_mma", (24,), 24, (256, 256, 256), "bias+elu+post+head",
+    ("24->24 @256^3", "fwd_wg", (24,), 24, (256, 256, 256), "bias+elu", BF16),
+    ("[24,48]->24 @256^3", "fwd_wg", (24, 48), 24, (256, 256, 256), "bias+elu", BF16),
+    ("24->24 @256^3 +post+head", "fwd_wg", (24,), 24, (256, 256, 256), "bias+elu+post+head",
      BF16),
-    ("4->24 @128^3", "fwd_mma", (4,), 24, (128, 128, 128), "bias+elu", BF16),
-    ("48->48 @128^3", "fwd_mma", (48,), 48, (128, 128, 128), "bias+elu", BF16),
-    ("96->96 @64^3", "fwd_mma", (96,), 96, (64, 64, 64), "bias+elu", BF16),
-    ("[192,384]->192 @32^3 +post", "fwd_mma", (192, 384), 192, (32, 32, 32), "bias+elu+post",
+    ("4->24 @128^3", "fwd_wg", (4,), 24, (128, 128, 128), "bias+elu", BF16),
+    ("24->48 @128^3", "fwd_wg", (24,), 48, (128, 128, 128), "bias+elu", BF16),
+    ("48->48 @128^3", "fwd_wg", (48,), 48, (128, 128, 128), "bias+elu", BF16),
+    ("[48,96]->48 @128^3", "fwd_wg", (48, 96), 48, (128, 128, 128), "bias+elu", BF16),
+    ("48->96 @64^3", "fwd_wg", (48,), 96, (64, 64, 64), "bias+elu", BF16),
+    ("96->96 @64^3", "fwd_wg", (96,), 96, (64, 64, 64), "bias+elu", BF16),
+    ("[96,192]->96 @64^3", "fwd_wg", (96, 192), 96, (64, 64, 64), "bias+elu", BF16),
+    ("96->192 @32^3", "fwd_wg", (96,), 192, (32, 32, 32), "bias+elu", BF16),
+    ("192->192 @32^3", "fwd_wg", (192,), 192, (32, 32, 32), "bias+elu", BF16),
+    ("[192,384]->192 @32^3 +post", "fwd_wg", (192, 384), 192, (32, 32, 32), "bias+elu+post",
      BF16),
+    ("192->384 @16^3", "fwd_wg", (192,), 384, (16, 16, 16), "bias+elu", BF16),
+    ("384->384 @16^3", "fwd_wg", (384,), 384, (16, 16, 16), "bias+elu", BF16),
     ("1->24 @192x224x192", "first_mma", (1,), 24, (192, 224, 192), "bias+elu", BF16),
     # W % 8 != 0: the 2-byte load and store path
     ("1->24 @192x224x190", "first_mma", (1,), 24, (192, 224, 190), "bias+elu", BF16),
-    ("24->24 @192x224x192", "fwd_mma", (24,), 24, (192, 224, 192), "bias+elu", BF16),
+    ("24->24 @192x224x192", "fwd_wg", (24,), 24, (192, 224, 192), "bias+elu", BF16),
     # a large field of view: the level-0 convs that K5 served on the TPU,
     # 24-, 48- and 72-channel sources of 25 M voxels (a 72-channel source's
     # byte offsets pass 2^31)
     ("1->24 @192x256x512", "first_mma", (1,), 24, (192, 256, 512), "bias+elu", BF16),
-    ("24->24 @192x256x512 (K5)", "fwd_mma", (24,), 24, (192, 256, 512), "bias+elu", BF16),
-    ("[24,48]->24 @192x256x512", "fwd_mma", (24, 48), 24, (192, 256, 512), "bias+elu", BF16),
-    ("72->24 @192x256x512", "fwd_mma", (72,), 24, (192, 256, 512), "bias+elu", BF16),
-    ("24->24 @64x384x384 (K5)", "fwd_mma", (24,), 24, (64, 384, 384), "bias+elu", BF16),
+    ("24->24 @192x256x512 (K5)", "fwd_wg", (24,), 24, (192, 256, 512), "bias+elu", BF16),
+    ("[24,48]->24 @192x256x512", "fwd_wg", (24, 48), 24, (192, 256, 512), "bias+elu", BF16),
+    ("72->24 @192x256x512", "fwd_wg", (72,), 24, (192, 256, 512), "bias+elu", BF16),
+    ("24->24 @64x384x384 (K5)", "fwd_wg", (24,), 24, (64, 384, 384), "bias+elu", BF16),
     # the train step's input-gradient convs: flipped, transposed weights, no epilogue
-    ("24->72 @128^3 (dx)", "fwd_mma", (24,), 72, (128, 128, 128), "dx", BF16),
-    ("48->144 @64^3 (dx)", "fwd_mma", (48,), 144, (64, 64, 64), "dx", BF16),
+    ("24->72 @128^3 (dx)", "fwd_wg", (24,), 72, (128, 128, 128), "dx", BF16),
+    ("48->144 @64^3 (dx)", "fwd_wg", (48,), 144, (64, 64, 64), "dx", BF16),
     # the float32 kernels (H-first-x3 and H-fwd-x3, split TF32):
     # the float32 train step's convs at 128^3 (forward and input gradients,
     # each level's), then the level-0 convs of the float32 predict phase's
@@ -231,15 +246,15 @@ SHAPES = [
     # gradient of its first conv, 32->1 (one n8 tile of output channels); in
     # float32 the 64^3 adversarial run's first two
     ("1->32 @128^3 leaky", "first_mma", (1,), 32, (128, 128, 128), "bias+leaky", BF16),
-    ("32->64 @64^3 leaky", "fwd_mma", (32,), 64, (64, 64, 64), "bias+leaky", BF16),
-    ("64->128 @32^3 leaky", "fwd_mma", (64,), 128, (32, 32, 32), "bias+leaky", BF16),
-    ("128->256 @16^3 leaky", "fwd_mma", (128,), 256, (16, 16, 16), "bias+leaky", BF16),
+    ("32->64 @64^3 leaky", "fwd_wg", (32,), 64, (64, 64, 64), "bias+leaky", BF16),
+    ("64->128 @32^3 leaky", "fwd_wg", (64,), 128, (32, 32, 32), "bias+leaky", BF16),
+    ("128->256 @16^3 leaky", "fwd_wg", (128,), 256, (16, 16, 16), "bias+leaky", BF16),
     ("32->1 @128^3 (dx)", "fwd_mma", (32,), 1, (128, 128, 128), "dx", BF16),
     # the gradient penalty's transposed stride-1 convs of levels 1-3 (C_in =
     # 2·C_out, no epilogue; level 0's is the 32->1 row)
-    ("64->32 @64^3 (dx)", "fwd_mma", (64,), 32, (64, 64, 64), "dx", BF16),
-    ("128->64 @32^3 (dx)", "fwd_mma", (128,), 64, (32, 32, 32), "dx", BF16),
-    ("256->128 @16^3 (dx)", "fwd_mma", (256,), 128, (16, 16, 16), "dx", BF16),
+    ("64->32 @64^3 (dx)", "fwd_wg", (64,), 32, (64, 64, 64), "dx", BF16),
+    ("128->64 @32^3 (dx)", "fwd_wg", (128,), 64, (32, 32, 32), "dx", BF16),
+    ("256->128 @16^3 (dx)", "fwd_wg", (256,), 128, (16, 16, 16), "dx", BF16),
     ("1->32 @64^3 f32 leaky", "first_x3", (1,), 32, (64, 64, 64), "bias+leaky", F32),
     # Hyperfine's first conv in float32 (compute_dtype="float32") at its padded
     # shape, and W % 4 != 0: H-first-x3's 4-byte load and store path
@@ -259,25 +274,32 @@ def tutorial_shapes():
     for i, (n, f) in enumerate(levels):
         sp = (n, n, n)
         for c in ((4, 8) if i == 0 else (f // 2,)):
-            fwd.append((f"{c}->{f} @{n}^3", "fwd_mma", (c,), f, sp, "bias+elu", BF16))
+            fwd.append((f"{c}->{f} @{n}^3", "fwd_wg", (c,), f, sp, "bias+elu", BF16))
             wgrad.append((c, f, n, BF16))
             if i:
-                fwd.append((f"{f}->{c} @{n}^3 (dx)", "fwd_mma", (f,), c, sp, "dx", BF16))
-        fwd.append((f"{f}->{f} @{n}^3", "fwd_mma", (f,), f, sp, "bias+elu", BF16))
-        fwd.append((f"{f}->{f} @{n}^3 (dx)", "fwd_mma", (f,), f, sp, "dx", BF16))
+                fwd.append((f"{f}->{c} @{n}^3 (dx)", "fwd_wg", (f,), c, sp, "dx", BF16))
+        fwd.append((f"{f}->{f} @{n}^3", "fwd_wg", (f,), f, sp, "bias+elu", BF16))
+        fwd.append((f"{f}->{f} @{n}^3 (dx)", "fwd_wg", (f,), f, sp, "dx", BF16))
         wgrad.append((f, f, n, BF16))
         if i < len(levels) - 1:  # the decoder's [skip, up] conv of this level
-            fwd.append((f"[{f},{2 * f}]->{f} @{n}^3", "fwd_mma", (f, 2 * f), f, sp, "bias+elu",
+            fwd.append((f"[{f},{2 * f}]->{f} @{n}^3", "fwd_wg", (f, 2 * f), f, sp, "bias+elu",
                         BF16))
-            fwd.append((f"{f}->{3 * f} @{n}^3 (dx)", "fwd_mma", (f,), 3 * f, sp, "dx", BF16))
+            fwd.append((f"{f}->{3 * f} @{n}^3 (dx)", "fwd_wg", (f,), 3 * f, sp, "dx", BF16))
             wgrad.append((2 * f, f, n, BF16))
     return fwd, wgrad
 
 
 TUTORIAL_SHAPES, TUTORIAL_WGRAD_SHAPES = tutorial_shapes()
+# the 256^3 flip-TTA predict pass: its conv rows of SHAPES and their launches
+# per TTA pair (a row's +post twin, the decoder's second conv, counted with it)
+PREDICT_ROWS = {"1->24 @256^3": 2, "24->24 @256^3": 2, "24->24 @256^3 +post+head": 2,
+                "[24,48]->24 @256^3": 2, "24->48 @128^3": 2, "48->48 @128^3": 4,
+                "[48,96]->48 @128^3": 2, "48->96 @64^3": 2, "96->96 @64^3": 4,
+                "[96,192]->96 @64^3": 2, "96->192 @32^3": 2, "192->192 @32^3": 4,
+                "[192,384]->192 @32^3 +post": 2, "192->384 @16^3": 2, "384->384 @16^3": 2}
 SHAPES += TUTORIAL_SHAPES
 TIMED = {"first_mma": "1->24 @256^3", "first_x3": "1->24 @128^3 f32",
-         "fwd_mma": "[24,48]->24 @256^3",
+         "fwd_wg": "[24,48]->24 @256^3", "fwd_mma": "32->1 @128^3 (dx)",
          "wgrad_mma": "(24,24) @128^3", "fwd_x3": "24->24 @128^3 f32",
          "wgrad_x3": "(24,24) @64^3 f32"}
 
@@ -304,8 +326,8 @@ VOLUMES = [("t1_256.nii.gz", (256, 256, 128), (1.0, 1.0, 2.0), False),
 LARGE_FOV = ("head_neck_ct.nii", (180, 250, 500), (1.0, 1.0, 1.0))
 # Hyperfine T1/T2 pairs at 1.5 x 1.5 x 5 mm: (T1 shape, T2 rotated about z, degrees)
 HYPERFINE = [((128, 160, 32), 0.0), ((128, 160, 32), 10.0)]
-PREDICT_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_mma": 34}   # per volume, flip TTA
-HYPERFINE_LAUNCHES = {**NO_LAUNCHES, "first_mma": 1, "fwd_mma": 17}  # per pair, one forward
+PREDICT_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_wg": 34}   # per volume, flip TTA
+HYPERFINE_LAUNCHES = {**NO_LAUNCHES, "first_mma": 1, "fwd_wg": 17}  # per pair, one forward
 PREDICT_F32_LAUNCHES = {**NO_LAUNCHES, "first_x3": 2, "fwd_x3": 34}  # per volume, float32 compute
 
 
@@ -401,6 +423,9 @@ def check_kernels(conv_cf, gen):
         torch.cuda.synchronize()
         launched = [k for k in before if conv_cf.LAUNCHES[k] != before[k]]
         require(launched == [kernel], (name, launched))
+        if dtype == BF16 and not kernel.startswith("first"):  # the gate, stated once
+            require(conv_cf.fwd_wg_ok(kw["x"], cout, head=kw.get("head")) == (kernel == "fwd_wg"),
+                    (name, kernel))
         want = conv_cf.conv3d_cf_reference(**kw)
         torch.cuda.synchronize()
         require(got.shape == want.shape and got.dtype == want.dtype, name)
@@ -408,7 +433,12 @@ def check_kernels(conv_cf, gen):
         rel = err / float(want.float().abs().max())
         tol = F32_BOUND if dtype == F32 else HEAD_BOUND if "head" in fused else KERNEL_BOUND
         reps = 3 if cin * np.prod(spatial) > 2 ** 28 else 10
-        ms = cuda_ms(lambda: conv_cf.conv3d_cf(**kw), reps)
+        ab = {}  # H-fwd-wg's rows: it and H-fwd-mma in turns, A B B A
+        for k in ((None, "fwd_mma", "fwd_mma", None) if kernel == "fwd_wg" else (None,)):
+            ab.setdefault(k, []).append(
+                cuda_ms(lambda: conv_cf.conv3d_cf(**kw, kernel=k), reps))
+        ms = float(np.mean(ab[None]))
+        mma_ms = ab.get("fwd_mma")
         plain_ms = cuda_ms(lambda: conv_cf.conv3d_cf_reference(**kw), reps)
         library_ms = cuda_ms(lib, reps)
         vox = int(np.prod(spatial))
@@ -417,14 +447,17 @@ def check_kernels(conv_cf, gen):
         bound_ms, bound_by = bound(2 * 27 * cin * cout * vox,
                                    size * cin * vox + 4 * 27 * cin * cout + out_bytes,
                                    dtype)
+        turns = "" if mma_ms is None else \
+            f" (A/B: H-fwd-wg {ab[None][0]:.3f}, {ab[None][1]:.3f}; H-fwd-mma {mma_ms[0]:.3f}, " \
+            f"{mma_ms[1]:.3f})"
         print(f"  {kernel:9s} {name:28s} {fused:20s} max_abs_err {err:.3e} rel {rel:.3e} "
-              f"(tolerance {tol:.0e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+              f"(tolerance {tol:.0e})  kernel {ms:.3f} ms{turns}  plain {plain_ms:.3f} ms  "
               f"library {library_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})", flush=True)
         require(np.isfinite(rel) and rel <= tol, (name, rel, tol))
         results.append(dict(kernel=kernel, shape=name, fused=fused, dtype=str(dtype)[6:],
                             max_abs_err=err,
                             rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=bound_ms, bound_by=bound_by))
+                            bound_ms=bound_ms, bound_by=bound_by, mma_ms=mma_ms))
         del kw, got, want, lib
         torch.cuda.empty_cache()
     return results
@@ -960,8 +993,8 @@ def adversarial_checks(conv_cf, adv, trained, root, pm, ps):
         cycle()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"H-first-mma": "conv3d_first_mma_kernel", "H-fwd-mma": "conv3d_fwd_mma_kernel",
-             "H-wgrad-mma": "conv3d_wgrad_mma_kernel"}
+    kinds = {"H-first-mma": "conv3d_first_mma_kernel", "H-fwd-wg": "conv3d_fwd_wg_kernel",
+             "H-fwd-mma": "conv3d_fwd_mma_kernel", "H-wgrad-mma": "conv3d_wgrad_mma_kernel"}
     device_ms = dict.fromkeys([*kinds, "other"], 0.0)
     others = []
     for ev in prof.key_averages():
@@ -1053,7 +1086,7 @@ def odd_size_critic_check(conv_cf, adv):
     rl2 = lambda a, b: float((a.float() - b).norm() / b.norm())  # noqa: E731
     out = {}
     for dtype, kernels in ((torch.float32, ("first_x3", "fwd_x3")),
-                           (torch.bfloat16, ("first_mma", "fwd_mma"))):
+                           (torch.bfloat16, ("first_mma", "fwd_wg", "fwd_mma"))):
         critic = Discriminator3D(spatial, compute_dtype=dtype).to(dev)
         critic.load_state_dict(plain.state_dict())
         named = dict(critic.named_parameters())
@@ -1718,7 +1751,7 @@ def tutorials_phase(conv_cf, root):
     total = time.perf_counter() - t_all
     print(f"  all {len(TUTORIALS)} in {total:.1f} s; launches {launches}")
     require(total <= TUTORIAL_LIMIT_S, total)
-    require(launches["fwd_mma"] > 0 and launches["wgrad_mma"] > 0, launches)
+    require(launches["fwd_wg"] > 0 and launches["wgrad_mma"] > 0, launches)
     for sub in ("7-training", "9-log-tensor"):  # bf16 training on the kernels
         require(os.path.isfile(os.path.join(results, sub, "001.pt")), sub)
     return {"launches": launches, "summary": dict(seconds=seconds, seconds_all=total)}
@@ -1839,7 +1872,8 @@ def profile_predict_volume(predictor, vol, aff):
         predictor.predict_volume(vol, aff)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"H-fwd-mma": "conv3d_fwd_mma_kernel", "H-first-mma": "conv3d_first_mma_kernel",
+    kinds = {"H-fwd-wg": "conv3d_fwd_wg_kernel", "H-fwd-mma": "conv3d_fwd_mma_kernel",
+             "H-first-mma": "conv3d_first_mma_kernel",
              "H-first-x3": "conv3d_first_x3_kernel",
              "copy host->device": "Memcpy HtoD", "copy device->host": "Memcpy DtoH"}
     device_ms = dict.fromkeys([*kinds, "other"], 0.0)
@@ -2135,6 +2169,14 @@ def main():
                 wall_ms, device_ms, idle = profile_predict_volume(warm, vol, aff)
                 timings[fname].update(profiled_wall_ms=wall_ms, device_ms=device_ms,
                                       device_idle=idle)
+                rows = {c["shape"]: c["ms"] for c in checks if c["shape"] in PREDICT_ROWS}
+                for row, n_pair in PREDICT_ROWS.items():
+                    print(f"  predict pass row {row:28s} {n_pair} launches per TTA pair x "
+                          f"{rows[row]:.3f} ms")
+                sigma = sum(n_pair * rows[row] for row, n_pair in PREDICT_ROWS.items())
+                print(f"  sum of launches x kernel ms over the pass: {sigma:.3f} ms, beside the "
+                      f"network's {net_ms:.3f} ms (CUDA events)")
+                timings[fname]["sum_launches_x_ms"] = sigma
             print(f"  {fname}: padded {tuple(x.shape[2:])}  predict_volume {secs} s  "
                   f"network (2 forwards) {net_ms:.1f} ms  vs plain: relative L2 {rel:.3e} "
                   f"(bound {NET_BOUND:.0e}), max |diff| x255 = {max_out:.3f}")
@@ -2182,6 +2224,7 @@ def main():
     for kernel, source, replaces, also in (
             ("first_mma", FIRST_MMA_SOURCE, f"{PALLAS}:569", []),
             ("first_x3", FIRST_X3_SOURCE, f"{PALLAS}:569", []),
+            ("fwd_wg", WG_SOURCE, f"{PALLAS}:270", fwd_also),
             ("fwd_mma", MMA_SOURCE, f"{PALLAS}:270", fwd_also),
             ("wgrad_mma", WGRAD_MMA_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"]),
             ("fwd_x3", X3_SOURCE, f"{PALLAS}:270", fwd_also),
@@ -2195,8 +2238,8 @@ def main():
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=timed["ms"],
             plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
             library_ms=timed["library_ms"], timed_shape=timed["shape"],
-            checks=[{k: c[k] for k in ("shape", "fused", "dtype", "rel_err", "ms", "plain_ms",
-                                       "library_ms", "bound_ms", "bound_by")}
+            checks=[{k: c.get(k) for k in ("shape", "fused", "dtype", "rel_err", "ms", "plain_ms",
+                                           "library_ms", "bound_ms", "bound_by", "mma_ms")}
                     for c in mine]))
     print(json.dumps({"timings": timings, "main_seconds": main_s,
                       "peak_allocated_bytes": peak, "predict_float32": predict_f32["summary"],

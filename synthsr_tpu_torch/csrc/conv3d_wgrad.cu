@@ -34,7 +34,15 @@ __global__ void conv3d_wgrad_reduce_kernel(const float* __restrict__ partial, in
 
 extern "C" {
 
-const char* conv3d_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+// CUDA's message, or H-fwd-wg's launcher errors (conv3d_fwd_wg.cu's WG_ERR_*)
+const char* conv3d_error_string(int err) {
+  switch (err) {
+    case 20000: return "cuTensorMapEncodeTiled refused a tensor map";
+    case 20001: return "cuTensorMapEncodeTiled not found in the driver";
+    case 20002: return "H-fwd-wg launch arguments out of range";
+  }
+  return cudaGetErrorString((cudaError_t)err);
+}
 
 // Sums (n_split, 27, ci_pad, co_pad) partials in split order into dw (27, ci, co);
 // the second pass of both H-wgrad-mma and H-wgrad-x3.

@@ -25,10 +25,12 @@ first-conv gate (one source, C_in <= 2, no ``accum``, no ``head``; K1's
 shapes) with C_out <= 32 launches **H-first-mma** for bf16
 (``csrc/conv3d_first_mma.cu``) or **H-first-x3** for float32
 (``csrc/conv3d_first_x3.cu``), both on the tensor cores and both replacing
-K1; any other conv (a first conv with C_out > 32 too) launches **H-fwd-mma**
-for bf16 (``csrc/conv3d_fwd_mma.cu``) or **H-fwd-x3** for float32
-(``csrc/conv3d_fwd_x3.cu``), both on the tensor cores and both replacing K2,
-K3, K4 and K5; any other device raises.
+K1; any other bf16 conv that passes :func:`fwd_wg_ok` (no ``accum``, C_out %
+8 == 0; :func:`wg_sources` pads W to a multiple of 8) launches **H-fwd-wg**
+(``csrc/conv3d_fwd_wg.cu``: wgmma, TMA and mbarrier rings) and the rest
+**H-fwd-mma** (``csrc/conv3d_fwd_mma.cu``: mma.sync); a float32 one
+**H-fwd-x3** (``csrc/conv3d_fwd_x3.cu``); these replace K2, K3, K4 and K5;
+any other device raises.
 
 Split TF32 ("3xTF32") is how the float32 kernels H-first-x3, H-fwd-x3 and
 H-wgrad-x3 keep float32 accuracy on the tensor cores: each float32 operand
@@ -47,10 +49,9 @@ layouts reject: W % 128 == 0, H % 16 == 0, C_in <= 96 and C_in·W <= 96·256
 (``synthsr_tpu/models/unet_cf.py:140-159``).  On the predict path these are
 the level-0 convs of a large field of view, e.g. 24->24 at 192x256x512 or
 256x384x384 and, unfused, 72->24 at 256x512x256, whose planes (cin·H·W over
-24·256²) pass the other kernels' caps.  H-fwd-mma and H-fwd-x3 take those
-shapes as they take any other (64-bit offsets; grid (W/32·H/8, D, C_out
-tiles)), with bias and activation fused at every C_in, so no dispatch here
-depends on them.
+24·256²) pass the other kernels' caps.  H-fwd-wg, H-fwd-mma and H-fwd-x3
+take those shapes as they take any other, with bias and activation fused at
+every C_in, so no dispatch here depends on them.
 
 ``conv3d_cf_wgrad(x, g)`` is the training backward's weight gradient,
 ``dw[dz, dy, dx, ci, co] = sum x[ci, z+dz-1, h+dy-1, w+dx-1] g[co, z, h, w]``
@@ -75,7 +76,7 @@ import torch.nn.functional as F
 from . import cuda_build
 
 LAUNCHES = {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
-            "wgrad_x3": 0}
+            "wgrad_x3": 0, "fwd_wg": 0}
 
 MMA_STEPS = 14  # k16 steps per 8-channel group of H-fwd-mma (FM_STEPS in csrc/conv3d_fwd_mma.cu)
 MMA_TILE = (8, 32)  # H-fwd-mma output tile (H, W) of one plane
@@ -91,6 +92,14 @@ FIRST_MMA_MAX_COUT = 32
 # conv3d_first_x3.cu agrees
 FIRST_X3_STEPS = {1: 4, 2: 7}
 FIRST_X3_MAX_PLANES = 8
+# H-fwd-wg: (M tiles of 8 x 8 voxels per consumer warpgroup, output planes
+# per block) of each N tile (output channels per block), the kernel's
+# instances; conv3d_fwd_wg.cu's WG_CONFIGS agrees.  Each keeps its
+# accumulators (MTW·NZ·N/2 float32 a thread) at or under 96 registers.
+WG_CONFIGS = {8: (4, 2), 16: (4, 2), 24: (4, 2), 32: (4, 1), 48: (2, 2), 64: (2, 1), 72: (2, 1),
+              96: (2, 1), 128: (1, 1), 144: (1, 1), 192: (1, 1)}
+WG_MAX_N = 192
+WG_PAIRS = 5  # k16 steps per (8-channel group, input plane): taps (0,1) (2,3) (4,5) (6,7) (8,-)
 _ACT_CODES = {None: 0, "elu": 1, "relu": 2, "leaky": 3}
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
@@ -107,6 +116,8 @@ def build_kernels() -> float:
     if ({c: lib.conv3d_first_mma_kpad(c) for c in FIRST_MMA_KPAD} != FIRST_MMA_KPAD
             or lib.conv3d_first_mma_max_cout() != FIRST_MMA_MAX_COUT):
         raise RuntimeError("csrc/conv3d_first_mma.cu and conv_cf.FIRST_MMA_* disagree")
+    if any(lib.conv3d_fwd_wg_config(n) != 16 * m + z for n, (m, z) in WG_CONFIGS.items()):
+        raise RuntimeError("csrc/conv3d_fwd_wg.cu and conv_cf.WG_CONFIGS disagree")
     if ({c: lib.conv3d_first_x3_steps(c) for c in FIRST_X3_STEPS} != FIRST_X3_STEPS
             or lib.conv3d_first_x3_max_cout() != FIRST_MMA_MAX_COUT
             or lib.conv3d_first_x3_max_planes() != FIRST_X3_MAX_PLANES):
@@ -162,13 +173,16 @@ class PackedConv:
     were laid out for.  ``first_frags``, for C_in <= 2 and C_out <= 32, else
     None: the A fragments of H-first-mma (bf16, see
     :func:`_first_mma_fragments`) or the B fragments of H-first-x3 (float32,
-    split TF32, see :func:`_first_x3_fragments`)."""
+    split TF32, see :func:`_first_x3_fragments`).  ``wg``, for bf16 with
+    C_out % 8 == 0, else None: H-fwd-wg's B operand (see
+    :func:`_wg_weights`)."""
     w: torch.Tensor
     frags: torch.Tensor | None
     dtype: torch.dtype
     ng: int
     splits: tuple
     first_frags: torch.Tensor | None
+    wg: torch.Tensor | None = None
 
     @property
     def cin(self) -> int:
@@ -244,6 +258,33 @@ def _x3_fragments(wr: torch.Tensor, splits, ng: int) -> torch.Tensor:
     return torch.stack(parts, -2).contiguous()
 
 
+def _wg_weights(wr: torch.Tensor, splits) -> torch.Tensor:
+    """H-fwd-wg's B operand from DHWIO weights ``wr`` (rounded to bf16 here):
+    (groups, 3 dz, WG_PAIRS, C_out/8 j, 2 h, 8 n, 8 k) bf16, flat, then
+    WG_MAX_N·16 zeros.
+
+    K runs over 8-channel groups (each source padded to a multiple of 8 on
+    its own), within a group over the three tap planes dz, and within a
+    plane over WG_PAIRS k16 steps: step p pairs the plane's taps 3·dy + dx =
+    2p (k 0-7, h = 0) and 2p + 1 (k 8-15, h = 1; tap 9 is zero).  Each k16
+    step is the canonical K-major no-swizzle wgmma layout of B: core matrix
+    (j, h) is 8 output channels 8j + n (rows, 16 bytes apart) by 8 input
+    channels k, 128 bytes, so LBO = 128 and SBO = 256 bytes.  A block's N
+    tile of a step is the contiguous run of its j; the tail keeps the last
+    tile's copy in bounds when the N tile runs past C_out."""
+    cout = wr.shape[4]
+    wb = wr.detach().to(torch.bfloat16)
+    cpad = sum(-(-c // 8) * 8 for c in splits)
+    w27 = wb.reshape(27, -1, cout) if cpad == wb.shape[3] else _source_padded(wb, splits)
+    groups, jt = cpad // 8, cout // 8
+    out = wb.new_zeros(groups * 3 * WG_PAIRS * jt * 128 + WG_MAX_N * 16)
+    dst = out[:-WG_MAX_N * 16].view(groups, 3, WG_PAIRS, jt, 2, 8, 8)  # group, dz, p, j, h, n, k
+    src = w27.reshape(3, 9, groups, 8, jt, 8).permute(2, 0, 1, 4, 5, 3)  # group, dz, tap, j, n, k
+    dst[:, :, :, :, 0].copy_(src[:, :, 0::2])  # taps 0, 2, 4, 6, 8
+    dst[:, :, :4, :, 1].copy_(src[:, :, 1::2])  # taps 1, 3, 5, 7 (tap 9 stays zero)
+    return out
+
+
 def _first_mma_fragments(wr: torch.Tensor) -> torch.Tensor:
     """H-first-mma's A operand: (2 m-tiles, steps, 8 g, 4 tq, 2 kh, 2 rh, 2 e)
     bf16, i.e. (m-tile, step, lane) x 4 registers of 2 bf16, in the order the
@@ -306,6 +347,61 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@dataclass(frozen=True)
+class WgPlan:
+    """An H-fwd-wg launch: ``n`` output channels per block (the wgmma N, a
+    key of WG_CONFIGS) in ``tiles`` N tiles of C_out, blocks of ``tx`` x
+    ``ty`` (W x H) voxels and ``nz`` output planes, ``mtw`` 8 x 8 M tiles per
+    consumer warpgroup and plane."""
+    n: int
+    tiles: int
+    tx: int
+    ty: int
+    mtw: int
+    nz: int
+
+
+def wg_plan(cout: int) -> WgPlan:
+    """H-fwd-wg's launch shape: C_out in the fewest N tiles of at most
+    WG_MAX_N channels, each the smallest instance that holds an even share;
+    its tiles 32 voxels wide (16 where a warpgroup has one M tile) and as
+    high as 2·MTW M tiles of 8 x 8 voxels make them (the kernel's
+    ``tile_x``; a narrower volume leaves the rest of a tile empty)."""
+    tiles = -(-cout // WG_MAX_N)
+    share = -(-cout // (8 * tiles)) * 8
+    n = min(k for k in WG_CONFIGS if k >= share)
+    mtw, nz = WG_CONFIGS[n]
+    tx = 32 if mtw >= 2 else 16
+    return WgPlan(n, -(-cout // n), tx, 128 * mtw // tx, mtw, nz)
+
+
+def fwd_wg_ok(x, cout: int, accum=None, head=None) -> bool:
+    """The gate of H-fwd-wg: the one place that decides which bf16 calls it
+    takes (``chip_smoke.py`` and the tests read it).  bf16 sources, no
+    ``accum``, C_out % 8 == 0 (wgmma's N), and with ``head`` C_out <=
+    WG_MAX_N (one N tile: the head sums every channel of a voxel in one
+    block); the sources' layout comes from :func:`wg_sources`.  Every other
+    bf16 conv but a first conv takes H-fwd-mma: the critic's 32->1 input
+    gradient (C_out 1) on the main paths."""
+    srcs = _sources(x)
+    return (srcs[0].dtype == torch.bfloat16 and accum is None and cout % 8 == 0
+            and (head is None or cout <= WG_MAX_N))
+
+
+def wg_sources(srcs) -> list:
+    """The sources H-fwd-wg reads: ``srcs`` themselves where W % 8 == 0 and
+    each is 16-byte aligned (a TMA row stride is a multiple of 16 bytes, a
+    base address 16-byte aligned), else copies zero-padded along W to the
+    next multiple of 8.  SAME padding reads zeros past W, so the first W
+    columns of the conv of the padded sources are the conv of the sources;
+    the caller cuts the output back to W (the U-Net's deepest levels where W
+    is not a multiple of 128, and the tutorials' 4³ and 2³)."""
+    wd = srcs[0].shape[3]
+    if wd % 8 == 0 and _aligned(*srcs):
+        return list(srcs)
+    return [F.pad(s, (0, -wd % 8)) for s in srcs]
+
+
 def pack_conv(w: torch.Tensor, dtype: torch.dtype, splits=None) -> PackedConv:
     """Round a DHWIO 3³ kernel to ``dtype`` and arrange it for the kernels,
     on the weight's own device.  ``splits``: the channel counts of the sources
@@ -325,7 +421,8 @@ def pack_conv(w: torch.Tensor, dtype: torch.dtype, splits=None) -> PackedConv:
     first = None
     if cin in FIRST_MMA_KPAD and cout <= FIRST_MMA_MAX_COUT:
         first = _first_mma_fragments(wr) if bf16 else _first_x3_fragments(wr)
-    return PackedConv(wr, frags, dtype, ng, splits, first)
+    wg = _wg_weights(wr, splits) if bf16 and cout % 8 == 0 else None
+    return PackedConv(wr, frags, dtype, ng, splits, first, wg)
 
 
 def _sources(x):
@@ -385,8 +482,11 @@ def conv3d_cf_reference(x, w, bias=None, activation=None, post=None, head=None,
     return y.to(dtype)
 
 
-def conv3d_cf(x, w, bias=None, activation=None, post=None, head=None, accum=None):
-    """SAME 3³ conv, channels-first (see the module docstring)."""
+def conv3d_cf(x, w, bias=None, activation=None, post=None, head=None, accum=None, kernel=None):
+    """SAME 3³ conv, channels-first (see the module docstring).  ``kernel``:
+    None launches the dispatch's choice; "fwd_mma" runs H-fwd-mma on a bf16
+    call that :func:`fwd_wg_ok` gives to H-fwd-wg (the two timed in turns);
+    a CPU tensor ignores it."""
     srcs = _sources(x)
     dev = srcs[0].device
     if dev.type == "cpu":
@@ -394,7 +494,9 @@ def conv3d_cf(x, w, bias=None, activation=None, post=None, head=None, accum=None
                                    post=post, head=head, accum=accum)
     if dev.type != "cuda":
         raise ValueError(f"conv3d_cf runs on CPU (plain) or CUDA (kernels), not {dev}")
-    return _launch(srcs, w, bias, activation, post, head, accum)
+    if kernel not in (None, "fwd_mma"):
+        raise ValueError(f"kernel must be None or 'fwd_mma', got {kernel!r}")
+    return _launch(srcs, w, bias, activation, post, head, accum, kernel)
 
 
 def _f32_on(t, dev, shape, name):
@@ -408,18 +510,24 @@ def _aligned(*ts) -> bool:
     return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
 
 
-def _launch(srcs, w, bias, activation, post, head, accum):
+def _launch(srcs, w, bias, activation, post, head, accum, kernel=None):
     dtype = srcs[0].dtype
     dev = srcs[0].device
     cins = [s.shape[0] for s in srcs]
-    pc = w if isinstance(w, PackedConv) else pack_conv(w.to(dev), dtype, cins)
-    if pc.dtype != dtype:
-        raise ValueError(f"weights packed for {pc.dtype}, activations are {dtype}")
-    if pc.w.device != dev:
-        raise ValueError(f"weights on {pc.w.device}, activations on {dev}")
-    cin, cout = sum(cins), pc.cout
-    if pc.cin != cin:
-        raise ValueError(f"kernel expects {pc.cin} input channels, got {cin}")
+    cin = sum(cins)
+    if isinstance(w, PackedConv):
+        pc, wshape, wdev = w, w.w.shape, w.w.device
+        if pc.dtype != dtype:
+            raise ValueError(f"weights packed for {pc.dtype}, activations are {dtype}")
+    else:  # packed below for the kernel that runs: H-fwd-wg reads only its own operand
+        if w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
+            raise ValueError(f"expected a (3, 3, 3, cin, cout) kernel, got {tuple(w.shape)}")
+        pc, wshape, wdev = None, w.shape, dev
+    if wdev != dev:
+        raise ValueError(f"weights on {wdev}, activations on {dev}")
+    cout = wshape[4]
+    if wshape[3] != cin:
+        raise ValueError(f"kernel expects {wshape[3]} input channels, got {cin}")
     d, h, wd = srcs[0].shape[1:]
     if d > 65535:
         raise ValueError(f"depth {d} exceeds the grid limit")
@@ -441,15 +549,15 @@ def _launch(srcs, w, bias, activation, post, head, accum):
         ha, hb = head
         hd = torch.cat([_f32_on(ha, dev, (cout,), "head weights"),
                         _f32_on(hb, dev, (), "head bias").reshape(1)])
-        if cout > 8 * pc.ng:
-            raise ValueError(f"head folding needs cout <= {8 * pc.ng}, got {cout}")
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptr = (lambda t: None if t is None else t.data_ptr())
         act = _ACT_CODES[activation]
         first = len(srcs) == 1 and cin <= 2 and accum is None and head is None
-        if first and pc.first_frags is not None:
+        if first and cin in FIRST_MMA_KPAD and cout <= FIRST_MMA_MAX_COUT:
+            if pc is None:
+                pc = pack_conv(w.to(dev), dtype, cins)
             out = torch.empty((cout, d, h, wd), dtype=dtype, device=dev)
             if dtype == torch.bfloat16:
                 vec = int(wd % 8 == 0 and _aligned(srcs[0], out))
@@ -473,8 +581,25 @@ def _launch(srcs, w, bias, activation, post, head, accum):
             out = torch.empty((cout, d, h, wd), dtype=dtype, device=dev)
         src1 = srcs[1] if len(srcs) == 2 else None
         c1 = cins[1] if src1 is not None else 0
-        if _split_key(pc.splits) != _split_key(cins):
+        if pc is not None and _split_key(pc.splits) != _split_key(cins):
             raise ValueError(f"weights packed for sources {pc.splits}, got {tuple(cins)}")
+        if kernel is None and fwd_wg_ok(srcs, cout, accum, head):
+            wgw = pc.wg if pc is not None else _wg_weights(w.to(dev), cins)
+            plan = wg_plan(cout)
+            ks = wg_sources(srcs)
+            w8 = ks[0].shape[3]
+            kout = out if w8 == wd else out.new_empty(out.shape[:3] + (w8,))
+            err = lib.conv3d_fwd_wg_launch(
+                ptr(ks[0]), cins[0], ptr(ks[1] if src1 is not None else None), c1, d, h, w8,
+                ptr(wgw), cout, plan.n, plan.tx, plan.ty, ptr(b), ptr(p), ptr(hd), act,
+                _sm_count(dev.index), ptr(kout), stream)
+            _check(lib, err, "H-fwd-wg")
+            LAUNCHES["fwd_wg"] += 1
+            return out if kout is out else kout[..., :wd].contiguous()
+        if pc is None:
+            pc = pack_conv(w.to(dev), dtype, cins)
+        if head is not None and cout > 8 * pc.ng:
+            raise ValueError(f"head folding needs cout <= {8 * pc.ng}, got {cout}")
         if dtype == torch.bfloat16:
             vec = int(wd % 8 == 0 and _aligned(*srcs, accum, out))
             err = lib.conv3d_fwd_mma_launch(
@@ -561,8 +686,7 @@ def conv3d_cf_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     ci, d, h, wd = x.shape
     co = g.shape[0]
-    plan = wgrad_plan(ci, co, d, h, wd,
-                      torch.cuda.get_device_properties(dev).multi_processor_count, x.dtype)
+    plan = wgrad_plan(ci, co, d, h, wd, _sm_count(dev.index), x.dtype)
     ci_pad = -(-ci // 8) * 8
     co_pad = -(-co // plan.co_tile) * plan.co_tile
     partial = torch.empty((plan.n_split, 27, ci_pad, co_pad), dtype=torch.float32, device=dev)

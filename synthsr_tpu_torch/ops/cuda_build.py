@@ -26,8 +26,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("conv3d_first_x3.cu", "conv3d_wgrad.cu", "conv3d_fwd_mma.cu", "conv3d_wgrad_mma.cu",
-           "conv3d_first_mma.cu", "conv3d_fwd_x3.cu", "conv3d_wgrad_x3.cu")
+SOURCES = ("conv3d_fwd_wg.cu", "conv3d_first_x3.cu", "conv3d_wgrad.cu", "conv3d_fwd_mma.cu",
+           "conv3d_wgrad_mma.cu", "conv3d_first_mma.cu", "conv3d_fwd_x3.cu", "conv3d_wgrad_x3.cu")
 HEADERS = ("mma_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -36,6 +36,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "conv3d_fwd_mma_launch": ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
                                _P, _P, _I, _I, _P, _P], _I),
+    "conv3d_fwd_wg_launch": ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P,
+                              _P, _I, _I, _P, _P], _I),
     "conv3d_fwd_x3_launch": ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
                               _P, _P, _I, _I, _P, _P], _I),
     "conv3d_first_x3_launch": ([_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _I,
@@ -47,6 +49,7 @@ _SIGNATURES = {
     "conv3d_wgrad_x3_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                                 _P], _I),
     "conv3d_fwd_mma_steps": ([], _I),
+    "conv3d_fwd_wg_config": ([_I], _I),
     "conv3d_first_mma_kpad": ([_I], _I),
     "conv3d_first_mma_max_cout": ([], _I),
     "conv3d_first_x3_steps": ([_I], _I),
@@ -144,6 +147,12 @@ def build() -> tuple[Path, float]:
     if not ok:
         failed = [" ".join(c) + "\n" + out for c, rc, out in logs if rc]
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-8000:])
+    # ptxas serialised a wgmma kernel (C7514, C7510, ...): it would run far below its rate
+    serialised = [line for _, _, out in logs for line in out.splitlines()
+                  if "wgmma.mma_async instructions are serialized" in line]
+    if serialised:
+        lib.unlink()
+        raise RuntimeError("ptxas serialised wgmma:\n" + "\n".join(serialised)[-4000:])
     return lib, seconds
 
 

@@ -125,7 +125,7 @@ def test_cpu_dispatch_is_plain_and_launches_nothing():
     want = conv3d_cf_reference(x, w, activation="elu")
     assert torch.equal(got, want)
     assert LAUNCHES == {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
-                        "wgrad_x3": 0}
+                        "wgrad_x3": 0, "fwd_wg": 0}
     with pytest.raises(ValueError):
         conv3d_cf(x.to("meta"), w.to("meta"))
 
@@ -274,7 +274,9 @@ def test_kernels_match_plain_on_card():
     (W = 20 takes the 2-byte load path); the flipped, transposed weights of an
     input gradient; the critic's LeakyReLU convs (C_out 32 on the first-conv
     kernels, 32 -> 64) and its first conv's input gradient (C_out 1).  The
-    reference is float32 with TF32 off, on the same rounded inputs."""
+    bf16 calls that ``conv_cf.fwd_wg_ok`` passes (W = 48, C_out % 8 == 0, no
+    accum) run H-fwd-wg, the rest H-fwd-mma.  The reference is float32 with
+    TF32 off, on the same rounded inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     old = torch.backends.cudnn.allow_tf32
@@ -327,6 +329,9 @@ def test_kernels_match_plain_on_card():
                      kernel),
                 ]
                 for kw, name in cases:
+                    if name == "fwd_mma" and conv_cf.fwd_wg_ok(kw["x"], kw["w"].shape[-1],
+                                                               kw.get("accum"), kw.get("head")):
+                        name = "fwd_wg"  # the gate gives the call to H-fwd-wg
                     before = dict(LAUNCHES)
                     got = conv3d_cf(**kw)
                     torch.cuda.synchronize()

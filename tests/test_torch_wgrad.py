@@ -59,7 +59,7 @@ def test_wgrad_rounds_g_to_x_dtype_and_dispatches_plain_on_cpu():
     want = conv3d_cf_wgrad_reference(x.float(), g.to(torch.bfloat16).float())
     assert torch.equal(got, want)
     assert LAUNCHES == {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
-                        "wgrad_x3": 0}
+                        "wgrad_x3": 0, "fwd_wg": 0}
     with pytest.raises(ValueError):
         conv3d_cf_wgrad(x.to("meta"), g.to("meta"))
     with pytest.raises(ValueError):
