@@ -4,9 +4,12 @@ that computes the same function, and the card's bound) at the shapes of the
 port's main paths: H-first-mma, H-fwd-wg (wgmma and TMA, timed in turns
 with H-fwd-mma at every row its gate gives it: every conv of the 256³
 predict pass, whose Σ launches × ms is printed beside the network's time),
-H-fwd-mma and H-wgrad-mma in bf16, and the split-TF32 tensor-core
-H-first-x3, H-fwd-x3 and H-wgrad-x3 in float32.  Then it drives each
-path at full width (24 features, 5 levels, seeded random weights and data):
+H-wgrad-wg (wgmma and TMA, timed in turns with H-wgrad-mma at every row its
+gate gives it: every weight gradient of the train step, whose Σ launches ×
+ms is printed for both), H-fwd-mma and H-wgrad-mma in bf16, and the
+split-TF32 tensor-core H-first-x3, H-fwd-x3 and H-wgrad-x3 in float32.  Then
+it drives each path at full width (24 features, 5 levels, seeded random
+weights and data):
 
 - predict: ``synthsr_tpu_torch.cli.predict.main`` with flip TTA over three
   synthetic volumes, and the fast network against the plain float32 forward;
@@ -71,7 +74,7 @@ import torch
 
 KERNEL_BOUND = 1e-2   # max|kernel - plain| / max|plain|, bf16 output (2^-8 rounding)
 HEAD_BOUND = 1e-4     # the same for the f32 head output (sum order only)
-WGRAD_BOUND = 1e-4    # the same for H-wgrad-mma: f32 sums of bf16 products (order only)
+WGRAD_BOUND = 1e-4    # the same for H-wgrad-wg / -mma: f32 sums of bf16 products (order only)
 F32_BOUND = 1e-5      # the same for the float32 kernels (order; split TF32's ~2^-22)
 NET_BOUND = 2e-2      # relative L2, bf16 fast TTA network output vs plain f32
 NET_F32_BOUND = 1e-4  # the same for the float32 fast network (sum order only)
@@ -117,32 +120,36 @@ MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_fwd_mma.cu"
 WG_SOURCE = "synthsr_tpu_torch/csrc/conv3d_fwd_wg.cu"
 FIRST_MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_first_mma.cu"
 WGRAD_MMA_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad_mma.cu"
+WGRAD_WG_SOURCE = "synthsr_tpu_torch/csrc/conv3d_wgrad_wg.cu"
 PALLAS = "synthsr_tpu/ops/conv_pallas.py"
 NO_LAUNCHES = {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
-               "wgrad_x3": 0, "fwd_wg": 0}
+               "wgrad_x3": 0, "fwd_wg": 0, "wgrad_wg": 0}
 # Every bf16 conv below that is not a first conv takes H-fwd-wg
 # (conv_cf.fwd_wg_ok: C_out % 8 == 0, no accum) but the critic's 32->1
-# input gradient (C_out 1), which takes H-fwd-mma.
+# input gradient (C_out 1), which takes H-fwd-mma; every bf16 weight gradient
+# takes H-wgrad-wg (conv_cf.wgrad_wg_ok: W >= 8; the penalty's 32->1 runs
+# mirrored, as (1,32)) but the tutorials' 4^3 and 2^3 levels, which take
+# H-wgrad-mma.
 # kernel launches per train step of the shipped net (4 input channels, so no
 # first-conv kernel): 18 forward convs + 17 input gradients (not the first conv's) on
 # H-fwd-wg; 18 weight gradients + 4 for the decoders' second sources on
-# H-wgrad-mma; in float32 the same counts on H-fwd-x3 and H-wgrad-x3
-TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_wg": 35, "wgrad_mma": 22}
+# H-wgrad-wg; in float32 the same counts on H-fwd-x3 and H-wgrad-x3
+TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_wg": 35, "wgrad_wg": 22}
 TRAIN_F32_LAUNCHES = {**NO_LAUNCHES, "fwd_x3": 35, "wgrad_x3": 22}
 TRAIN_F32_STEPS = 2
 # kernel launches of one critic update: the generator's fake (1 first_mma + 17
 # fwd_wg); the critic's first conv on target and fake (2 first_mma) and its
-# weight gradients (2 wgrad_mma; the input is detached: no dx); the gradient
+# weight gradients (2 wgrad_wg; the input is detached: no dx); the gradient
 # penalty's program, forward: 4 stride-1 trunk convs (1 first_mma + 3 fwd_wg)
 # and 4 transposed convs (3 fwd_wg, and the 32->1 on fwd_mma), backward: those
 # transposed convs' dx (1 first_mma for 1->32, 3 fwd_wg) and weight gradients
-# (4 wgrad_mma); the trunk gets no gradient from the penalty (LeakyReLU's slope
-# is piecewise constant)
-ADV_DISC_LAUNCHES = {**NO_LAUNCHES, "first_mma": 5, "fwd_wg": 26, "fwd_mma": 1, "wgrad_mma": 6}
+# (4 wgrad_wg); the trunk gets no gradient from the penalty (LeakyReLU's
+# slope is piecewise constant)
+ADV_DISC_LAUNCHES = {**NO_LAUNCHES, "first_mma": 5, "fwd_wg": 26, "fwd_mma": 1, "wgrad_wg": 6}
 # of one generator update: the train forward (1 first_mma + 17 fwd_wg) and
-# backward (17 dx fwd_wg, 22 wgrad_mma); the critic's first conv on the fake
+# backward (17 dx fwd_wg, 22 wgrad_wg); the critic's first conv on the fake
 # (1 first_mma) and its dx, 32->1 (1 fwd_mma; the critic is frozen: no wgrad)
-ADV_GEN_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_wg": 34, "fwd_mma": 1, "wgrad_mma": 22}
+ADV_GEN_LAUNCHES = {**NO_LAUNCHES, "first_mma": 2, "fwd_wg": 34, "fwd_mma": 1, "wgrad_wg": 22}
 # per 10:1 cycle; the float32 run (one critic and one generator update) takes
 # the same counts on H-first-x3, H-fwd-x3 and H-wgrad-x3
 ADV_LAUNCHES = {k: ADV_RATIO * ADV_DISC_LAUNCHES[k] + ADV_GEN_LAUNCHES[k] for k in NO_LAUNCHES}
@@ -153,7 +160,7 @@ ADV_F32_LAUNCHES = {**NO_LAUNCHES, "first_x3": 7, "fwd_x3": 62, "wgrad_x3": 28}
 # and 22 weight gradients; the frozen segmenter's convs are cuDNN's.  Counted
 # on the CPU with the dispatch gate mirrored (each would-be launch is one call
 # of the plain version); with remat=False 36 + 34 on H-fwd-wg
-SEG_TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_wg": 106, "wgrad_mma": 44}
+SEG_TRAIN_LAUNCHES = {**NO_LAUNCHES, "fwd_wg": 106, "wgrad_wg": 44}
 SEG_TRAIN_STEPS = 2   # steps per epoch of the segmenter run (1 epoch + a resume to 2)
 SEG_STEP_REPS = 3     # timed rounds of the segmenter step's remat variants, in turns
 # a fast forward with a 3-label softmax head: the shipped net's 1 + 17 convs;
@@ -300,13 +307,27 @@ PREDICT_ROWS = {"1->24 @256^3": 2, "24->24 @256^3": 2, "24->24 @256^3 +post+head
 SHAPES += TUTORIAL_SHAPES
 TIMED = {"first_mma": "1->24 @256^3", "first_x3": "1->24 @128^3 f32",
          "fwd_wg": "[24,48]->24 @256^3", "fwd_mma": "32->1 @128^3 (dx)",
-         "wgrad_mma": "(24,24) @128^3", "fwd_x3": "24->24 @128^3 f32",
-         "wgrad_x3": "(24,24) @64^3 f32"}
+         "wgrad_mma": "(192,192) @4^3", "fwd_x3": "24->24 @128^3 f32",
+         "wgrad_x3": "(24,24) @64^3 f32", "wgrad_wg": "(24,24) @128^3"}
 
-# H-wgrad-mma at the train step's weight-gradient shapes, then H-wgrad-x3 at
-# the same and at the earlier float32 row's (24,24) @64^3: (ci, co, spatial, dtype)
-TRAIN_WGRAD = [(4, 24, 128), (24, 24, 128), (48, 24, 128), (48, 48, 64), (96, 48, 64),
-               (192, 96, 32), (384, 384, 8)]
+
+def train_wgrad():
+    """The train step's 22 weight gradients, {(ci, co, spatial): launches per
+    step}: at level i = 0-3 ((128 / 2^i)^3 voxels, f = 24·2^i features) the
+    encoder's (c_in, f) (c_in 4 at level 0, f / 2 below) and (f, f), the
+    decoder's [skip, up] conv as (f, f) and (2f, f) and its second conv (f,
+    f); at 8^3 (192, 384) and (384, 384)."""
+    rows = {}
+    for i in range(4):
+        n, f = 128 >> i, 24 << i
+        rows.update({(4 if i == 0 else f // 2, f, n): 1, (f, f, n): 3, (2 * f, f, n): 1})
+    return {**rows, (192, 384, 8): 1, (384, 384, 8): 1}
+
+
+TRAIN_WGRAD = train_wgrad()
+assert sum(TRAIN_WGRAD.values()) == TRAIN_LAUNCHES["wgrad_wg"]
+# the weight-gradient kernels at the train step's shapes in bf16 and in
+# float32, then at the earlier float32 row's (24,24) @64^3: (ci, co, spatial, dtype)
 WGRAD_SHAPES = [(*s, BF16) for s in TRAIN_WGRAD] + [(*s, F32) for s in TRAIN_WGRAD] + [
                 (24, 24, 64, F32),
                 # the critic's: its first conv, a trunk conv's shape, and the
@@ -342,7 +363,7 @@ def ptxas_summary(log):
         if m:
             targs = m.group(2) or ""
             args = (["bf16"] if "bfloat16" in targs else ["f32"] if targs.startswith("If") else [])
-            name = m.group(1) + "<" + ",".join(args + re.findall(r"Li(\d+)E", targs)) + ">"
+            name = m.group(1) + "<" + ",".join(args + re.findall(r"L[ib](\d+)E", targs)) + ">"
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -478,17 +499,21 @@ def library_conv(conv_cf, kw):
 
 
 def check_wgrad(conv_cf, gen):
-    """H-wgrad-mma (bf16) and H-wgrad-x3 (float32) against
+    """H-wgrad-wg and H-wgrad-mma (bf16) and H-wgrad-x3 (float32) against
     conv3d_cf_wgrad_reference (float32 conv3d_weight, TF32 off) on the same
-    inputs, and two calls bit-equal."""
+    inputs, and two calls bit-equal; H-wgrad-wg's rows also H-wgrad-mma's
+    time, in turns."""
     dev = torch.device("cuda")
     results = []
     for ci, co, n, dtype in WGRAD_SHAPES:
-        kernel = "wgrad_mma" if dtype == BF16 else "wgrad_x3"
         tol = WGRAD_BOUND if dtype == BF16 else F32_BOUND
         name = f"({ci},{co}) @{n}^3" + (" f32" if dtype == F32 else "")
         x = torch.randn(ci, n, n, n, device=dev, generator=gen).to(dtype)
         g = torch.randn(co, n, n, n, device=dev, generator=gen).to(dtype)
+        kernel = "wgrad_x3" if dtype == F32 else \
+            "wgrad_wg" if conv_cf.wgrad_wg_ok(x, g) else "wgrad_mma"
+        require(dtype == F32 or (kernel == "wgrad_wg") == (n >= 8),
+                (name, kernel))
         before = dict(conv_cf.LAUNCHES)
         got = conv_cf.conv3d_cf_wgrad(x, g)
         again = conv_cf.conv3d_cf_wgrad(x, g)
@@ -502,26 +527,50 @@ def check_wgrad(conv_cf, gen):
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
         same = bool(torch.equal(got, again))
-        ms = cuda_ms(lambda: conv_cf.conv3d_cf_wgrad(x, g), 5)
+        ab = {}  # H-wgrad-wg's rows: it and H-wgrad-mma in turns, A B B A
+        for k in ((None, "wgrad_mma", "wgrad_mma", None) if kernel == "wgrad_wg" else (None,)):
+            ab.setdefault(k, []).append(cuda_ms(lambda: conv_cf.conv3d_cf_wgrad(x, g, kernel=k), 5))
+        ms = float(np.mean(ab[None]))
+        mma_ms = ab.get("wgrad_mma")
         plain_ms = cuda_ms(lambda: conv_cf.conv3d_cf_wgrad_reference(x, g), 5)
         library_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
             x[None], (co, ci, 3, 3, 3), g[None], padding=1), 5)
         flops = 2 * 27 * ci * co * n ** 3
         size = 2 if dtype == BF16 else 4
         bound_ms, bound_by = bound(flops, size * (ci + co) * n ** 3 + 4 * 27 * ci * co, dtype)
+        turns = "" if mma_ms is None else \
+            f" (A/B: H-wgrad-wg {ab[None][0]:.3f}, {ab[None][1]:.3f}; H-wgrad-mma " \
+            f"{mma_ms[0]:.3f}, {mma_ms[1]:.3f})"
         print(f"  {kernel:9s} {name:20s} max_abs_err {err:.3e} rel {rel:.3e} (tolerance "
               f"{tol:.0e})  bit-equal repeat {same}  kernel {ms:.3f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.3f} ms  library "
+              f"({flops / ms / 1e9:.1f} TFLOP/s){turns}  plain {plain_ms:.3f} ms  library "
               f"{library_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})", flush=True)
         require(np.isfinite(rel) and rel <= tol, (name, rel))
         require(same, (name, "repeat differs"))
         results.append(dict(kernel=kernel, shape=name, fused="", dtype=str(dtype)[6:],
                             max_abs_err=err,
                             rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=bound_ms, bound_by=bound_by))
+                            bound_ms=bound_ms, bound_by=bound_by, mma_ms=mma_ms))
         del x, g, got, again, want
     torch.cuda.empty_cache()
+    train_wgrad_sums(results)
     return results
+
+
+def train_wgrad_sums(results):
+    """Σ launches × ms of a train step's 22 weight gradients, per dtype: the
+    kernel's, the bound's and cuDNN's, and in bf16 H-wgrad-mma's from the
+    same turns."""
+    rows = {c["shape"]: c for c in results}
+    for dtype, tag in ((BF16, ""), (F32, " f32")):
+        mine = [(n, rows[f"({ci},{co}) @{s}^3{tag}"]) for (ci, co, s), n in TRAIN_WGRAD.items()]
+        sums = {k: sum(n * c[k] for n, c in mine) for k in ("ms", "bound_ms", "library_ms")}
+        mma = "" if dtype == F32 else \
+            f", H-wgrad-mma {sum(n * float(np.mean(c['mma_ms'])) for n, c in mine):.3f} ms"
+        per_step = ", ".join(f"{c['shape']} x{n}" for n, c in mine)
+        print(f"  train step{tag or ' bf16'}: sum of launches x ms over its 22 weight gradients "
+              f"({per_step}): kernel {sums['ms']:.3f} ms{mma}, bound {sums['bound_ms']:.3f} ms, "
+              f"cuDNN {sums['library_ms']:.3f} ms", flush=True)
 
 
 def make_train_data(root, rng):
@@ -994,7 +1043,8 @@ def adversarial_checks(conv_cf, adv, trained, root, pm, ps):
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     kinds = {"H-first-mma": "conv3d_first_mma_kernel", "H-fwd-wg": "conv3d_fwd_wg_kernel",
-             "H-fwd-mma": "conv3d_fwd_mma_kernel", "H-wgrad-mma": "conv3d_wgrad_mma_kernel"}
+             "H-fwd-mma": "conv3d_fwd_mma_kernel", "H-wgrad-mma": "conv3d_wgrad_mma_kernel",
+             "H-wgrad-wg": "conv3d_wgrad_wg_kernel"}
     device_ms = dict.fromkeys([*kinds, "other"], 0.0)
     others = []
     for ev in prof.key_averages():
@@ -1751,7 +1801,8 @@ def tutorials_phase(conv_cf, root):
     total = time.perf_counter() - t_all
     print(f"  all {len(TUTORIALS)} in {total:.1f} s; launches {launches}")
     require(total <= TUTORIAL_LIMIT_S, total)
-    require(launches["fwd_wg"] > 0 and launches["wgrad_mma"] > 0, launches)
+    require(launches["fwd_wg"] > 0 and launches["wgrad_wg"] > 0 and launches["wgrad_mma"] > 0,
+            launches)
     for sub in ("7-training", "9-log-tensor"):  # bf16 training on the kernels
         require(os.path.isfile(os.path.join(results, sub, "001.pt")), sub)
     return {"launches": launches, "summary": dict(seconds=seconds, seconds_all=total)}
@@ -2095,7 +2146,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = check_kernels(conv_cf, gen)
 
-    phase("H-wgrad-mma and H-wgrad-x3 vs plain")
+    phase("H-wgrad-wg, H-wgrad-mma and H-wgrad-x3 vs plain")
     checks += check_wgrad(conv_cf, gen)
 
     phase("main path: predict")
@@ -2226,6 +2277,7 @@ def main():
             ("first_x3", FIRST_X3_SOURCE, f"{PALLAS}:569", []),
             ("fwd_wg", WG_SOURCE, f"{PALLAS}:270", fwd_also),
             ("fwd_mma", MMA_SOURCE, f"{PALLAS}:270", fwd_also),
+            ("wgrad_wg", WGRAD_WG_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"]),
             ("wgrad_mma", WGRAD_MMA_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"]),
             ("fwd_x3", X3_SOURCE, f"{PALLAS}:270", fwd_also),
             ("wgrad_x3", WGRAD_X3_SOURCE, f"{PALLAS}:1090", [f"{PALLAS}:1705"])):

@@ -16,17 +16,20 @@ Modules, each beside its JAX counterpart of the same path unless named:
 - ``ops/conv_cf.py`` (``ops/conv_pallas.py``'s forward and weight-gradient
   entries): ``conv3d_cf`` / ``conv3d_cf_wgrad`` dispatch, launch counts and
   their plain versions;
-- ``csrc/``: CUDA C++ for sm_90a.  ``conv3d_fwd_mma.cu`` (H-fwd-mma, bf16
-  on the tensor cores) and ``conv3d_fwd_x3.cu`` (H-fwd-x3, float32 on the
+- ``csrc/``: CUDA C++ for sm_90a.  ``conv3d_fwd_wg.cu`` (H-fwd-wg, bf16 on
+  wgmma and TMA), ``conv3d_fwd_mma.cu`` (H-fwd-mma, bf16 on mma.sync, what
+  H-fwd-wg's gate refuses) and ``conv3d_fwd_x3.cu`` (H-fwd-x3, float32 on the
   tensor cores by split TF32) replace ``_plane_kernel``,
   ``conv3d_cf_grouped``, ``_flat_kernel`` and ``_kernel``;
   ``conv3d_first_mma.cu`` (H-first-mma, bf16 on the tensor cores) and
   ``conv3d_first_x3.cu`` (H-first-x3, float32 on the tensor cores by split
   TF32) replace ``_first_kernel``;
-  ``conv3d_wgrad_mma.cu`` (H-wgrad-mma, bf16) and ``conv3d_wgrad_x3.cu``
-  (H-wgrad-x3, float32, split TF32) replace ``_wgrad_kernel`` and
-  ``_wgrad_flat_kernel``, with ``conv3d_wgrad.cu``'s reduce;
-  ``mma_common.cuh`` holds what the tensor-core kernels share;
+  ``conv3d_wgrad_wg.cu`` (H-wgrad-wg, bf16 on wgmma and TMA),
+  ``conv3d_wgrad_mma.cu`` (H-wgrad-mma, bf16, what H-wgrad-wg's gate
+  refuses: volumes narrower than 8) and ``conv3d_wgrad_x3.cu``
+  (H-wgrad-x3, float32, split TF32) replace ``_wgrad_kernel`` and ``_wgrad_flat_kernel``, with
+  ``conv3d_wgrad.cu``'s reduce; ``wg_common.cuh`` holds what the wgmma
+  kernels share, ``mma_common.cuh`` what the mma.sync ones share;
 - ``ops/cuda_build.py`` (no counterpart: Pallas compiles in ``jit``): nvcc
   build on first use, ctypes load;
 - ``ops/conv_train.py``, ``ops/linops.py``, ``ops/blur.py``,

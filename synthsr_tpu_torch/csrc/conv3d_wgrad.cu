@@ -1,6 +1,6 @@
-// The second pass of the weight-gradient kernels H-wgrad-mma
-// (conv3d_wgrad_mma.cu, bf16) and H-wgrad-x3 (conv3d_wgrad_x3.cu, float32),
-// which replace the TPU kernels K6 (_wgrad_kernel,
+// The second pass of the weight-gradient kernels H-wgrad-wg
+// (conv3d_wgrad_wg.cu) and H-wgrad-mma (conv3d_wgrad_mma.cu), bf16, and
+// H-wgrad-x3 (conv3d_wgrad_x3.cu, float32), which replace the TPU kernels K6 (_wgrad_kernel,
 // synthsr_tpu/ops/conv_pallas.py:1090) and K7 (_wgrad_flat_kernel, :1705).
 // Each of their blocks writes the partial weight gradient of its share of the
 // volume to (n_split, 27, ci_pad, co_pad); this kernel sums the partials over
@@ -34,18 +34,18 @@ __global__ void conv3d_wgrad_reduce_kernel(const float* __restrict__ partial, in
 
 extern "C" {
 
-// CUDA's message, or H-fwd-wg's launcher errors (conv3d_fwd_wg.cu's WG_ERR_*)
+// CUDA's message, or the wgmma kernels' launcher errors (wg_common.cuh's WG_ERR_*)
 const char* conv3d_error_string(int err) {
   switch (err) {
     case 20000: return "cuTensorMapEncodeTiled refused a tensor map";
     case 20001: return "cuTensorMapEncodeTiled not found in the driver";
-    case 20002: return "H-fwd-wg launch arguments out of range";
+    case 20002: return "H-fwd-wg / H-wgrad-wg launch arguments out of range";
   }
   return cudaGetErrorString((cudaError_t)err);
 }
 
 // Sums (n_split, 27, ci_pad, co_pad) partials in split order into dw (27, ci, co);
-// the second pass of both H-wgrad-mma and H-wgrad-x3.
+// the second pass of H-wgrad-wg, H-wgrad-mma and H-wgrad-x3.
 int conv3d_wgrad_reduce(const float* partial, int n_split, int ci, int co, int ci_pad, int co_pad,
                         float* dw, void* stream) {
   const long long n = 27LL * ci * co;

@@ -1,7 +1,8 @@
 // Building blocks shared by the tensor-core kernels H-fwd-mma
 // (conv3d_fwd_mma.cu), H-wgrad-mma (conv3d_wgrad_mma.cu), H-first-mma
 // (conv3d_first_mma.cu), H-fwd-x3 (conv3d_fwd_x3.cu), H-wgrad-x3
-// (conv3d_wgrad_x3.cu) and H-first-x3 (conv3d_first_x3.cu), sm_90a.
+// (conv3d_wgrad_x3.cu) and H-first-x3 (conv3d_first_x3.cu), sm_90a;
+// H-wgrad-wg (conv3d_wgrad_wg.cu) loads its wgmma A fragments with ldsm_x4.
 //
 // - PTX wrappers: ldmatrix (.x4, .x4.trans), ld.shared.v2, the bf16 tensor-core
 //   product mma.sync.m16n8k16 and the tf32 one mma.sync.m16n8k8, both with

@@ -21,9 +21,10 @@
   second derivative of D) cannot reach the kernels by double autograd.
   Unrolled, every op is differentiated once: each stride-1 conv of the
   forward trunk (LeakyReLU fused) and each transposed stride-1 conv of the
-  backward chain runs ``conv3d_cf_train`` (H-first-mma / H-fwd-mma on a card
-  in bf16), and autograd's backward of those convs launches the kernels'
-  input-gradient convs and H-wgrad-mma.  The stride-2 convs and their
+  backward chain runs ``conv3d_cf_train`` (H-first-mma / H-fwd-wg on a card
+  in bf16, H-fwd-mma for the 32->1), and autograd's backward of those convs
+  launches the kernels' input-gradient convs and H-wgrad-wg (the 32->1's
+  as (1,32), mirrored).  The stride-2 convs and their
   transposes are plain PyTorch: ``F.conv_transpose3d(g, w, stride=2)``
   cropped by the SAME padding of each axis ((0, 1) on an even size, (1, 1)
   on an odd one), so every spatial size takes these paths.

@@ -3,9 +3,9 @@
 
 Every 3³ conv, at every level, goes through the differentiable
 :func:`~synthsr_tpu_torch.ops.conv_train.conv3d_cf_train`: on a card one
-forward + backward of the shipped net in bf16 is 18 H-fwd-mma forward
-launches, 17 H-fwd-mma input-gradient launches (the first conv's input needs
-none) and 22 H-wgrad-mma launches (18 convs, plus one per second decoder
+forward + backward of the shipped net in bf16 is 18 H-fwd-wg forward
+launches, 17 H-fwd-wg input-gradient launches (the first conv's input needs
+none) and 22 H-wgrad-wg launches (18 convs, plus one per second decoder
 source); in float32 the same counts on H-fwd-x3 and H-wgrad-x3.  Convs run per
 example (the kernels are batch-free); BatchNorm runs batch-synchronously over
 the examples with flax's train-mode math (float32 fast-variance batch

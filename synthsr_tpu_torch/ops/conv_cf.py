@@ -57,9 +57,13 @@ every C_in, so no dispatch here depends on them.
 ``dw[dz, dy, dx, ci, co] = sum x[ci, z+dz-1, h+dy-1, w+dx-1] g[co, z, h, w]``
 (zero padding), (3, 3, 3, ci, co) float32, with ``g`` rounded to ``x.dtype``
 first as K6 does (conv_pallas.py:1230).  The same dispatch: the plain
-:func:`conv3d_cf_wgrad_reference` on a CPU tensor; on a CUDA tensor
-**H-wgrad-mma** for bf16 (``csrc/conv3d_wgrad_mma.cu``) or **H-wgrad-x3** for
-float32 (``csrc/conv3d_wgrad_x3.cu``, split TF32), both replacing K6 and K7.
+:func:`conv3d_cf_wgrad_reference` on a CPU tensor; on a CUDA tensor a bf16
+call that passes :func:`wgrad_wg_ok` (W >= 8: every main-path weight
+gradient) launches **H-wgrad-wg** (``csrc/conv3d_wgrad_wg.cu``: wgmma, TMA
+and mbarrier rings), the rest of bf16 (the tutorials' 4³ and 2³ levels)
+**H-wgrad-mma** (``csrc/conv3d_wgrad_mma.cu``: mma.sync), float32
+**H-wgrad-x3** (``csrc/conv3d_wgrad_x3.cu``, split TF32); all replace K6 and
+K7.
 
 ``LAUNCHES`` counts kernel launches per kernel, under its own key, and
 nothing else.
@@ -76,7 +80,7 @@ import torch.nn.functional as F
 from . import cuda_build
 
 LAUNCHES = {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
-            "wgrad_x3": 0, "fwd_wg": 0}
+            "wgrad_x3": 0, "fwd_wg": 0, "wgrad_wg": 0}
 
 MMA_STEPS = 14  # k16 steps per 8-channel group of H-fwd-mma (FM_STEPS in csrc/conv3d_fwd_mma.cu)
 MMA_TILE = (8, 32)  # H-fwd-mma output tile (H, W) of one plane
@@ -100,6 +104,18 @@ WG_CONFIGS = {8: (4, 2), 16: (4, 2), 24: (4, 2), 32: (4, 1), 48: (2, 2), 64: (2,
               96: (2, 1), 128: (1, 1), 144: (1, 1), 192: (1, 1)}
 WG_MAX_N = 192
 WG_PAIRS = 5  # k16 steps per (8-channel group, input plane): taps (0,1) (2,3) (4,5) (6,7) (8,-)
+# H-wgrad-wg: the tile height of each tile width (voxels of one plane), the
+# kernel's instances (conv3d_wgrad_wg.cu's WW_CONFIGS agrees), the most
+# output channels a block (the wgmma M), and the most for the stacked layout
+# (two row blocks of g in M)
+WGRAD_WG_TILES = {32: 8, 16: 8, 8: 8}
+WGRAD_WG_MAX_CT = 64
+WGRAD_WG_STACK_CT = 32
+WGRAD_WG_STAGE_COST = 3  # a block's fixed cost in g planes (prologue, hand-off, partial)
+# bytes of partials the card writes and the reduce reads in the time of one g
+# voxel (about 3 TB/s x 6.25 ns, the level-0 rows' rate on an H100): prices a
+# split against the planes it saves
+WGRAD_WG_VOXEL_BYTES = 18750
 _ACT_CODES = {None: 0, "elu": 1, "relu": 2, "leaky": 3}
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
@@ -118,6 +134,8 @@ def build_kernels() -> float:
         raise RuntimeError("csrc/conv3d_first_mma.cu and conv_cf.FIRST_MMA_* disagree")
     if any(lib.conv3d_fwd_wg_config(n) != 16 * m + z for n, (m, z) in WG_CONFIGS.items()):
         raise RuntimeError("csrc/conv3d_fwd_wg.cu and conv_cf.WG_CONFIGS disagree")
+    if any(lib.conv3d_wgrad_wg_config(tx) != ty for tx, ty in WGRAD_WG_TILES.items()):
+        raise RuntimeError("csrc/conv3d_wgrad_wg.cu and conv_cf.WGRAD_WG_TILES disagree")
     if ({c: lib.conv3d_first_x3_steps(c) for c in FIRST_X3_STEPS} != FIRST_X3_STEPS
             or lib.conv3d_first_x3_max_cout() != FIRST_MMA_MAX_COUT
             or lib.conv3d_first_x3_max_planes() != FIRST_X3_MAX_PLANES):
@@ -646,59 +664,172 @@ def conv3d_cf_wgrad_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class WgradPlan:
-    """A weight-gradient launch: tiles of ``th`` x ``tw`` voxels of one plane,
-    ``co_tile`` output channels per block, the volume's (plane, tile) items
-    split over ``n_split`` blocks per (8-channel group of x, co tile)."""
+    """A weight-gradient launch of H-wgrad-mma or H-wgrad-x3: items of ``nz``
+    planes x ``th`` x ``tw`` voxels (128), ``co_tile`` output channels per
+    block, the volume's items split over ``n_split`` blocks per (8-channel
+    group of x, co tile)."""
     th: int
     tw: int
     co_tile: int
     n_split: int
+    nz: int = 1
 
 
+# H-wgrad-x3's items of 128 voxels (planes, H, W) by the volume's width: W >
+# 16 (WGRAD_MMA_TILE), 9-16 and 8 or less, so that a narrow volume's lanes
+# do not compute zeros; conv3d_wgrad_x3.cu's X3_ITEMS agrees
+WGRAD_X3_ITEMS = {32: (1, 4, 32), 16: (1, 8, 16), 8: (2, 8, 8)}
+WGRAD_X3_BLOCK_COST = 1  # a block's fixed cost in items (its partial, the reduce's read)
+
+
+def _fewest_waves(pairs: int, items: int, slots: int, cost: int,
+                  split_cost: float = 0.0) -> int:
+    """Splits of ``items`` per each of ``pairs`` (channel group, co tile) for
+    ``slots`` resident blocks: the n that minimises waves x (items a block +
+    ``cost``) + ``split_cost`` per split past the first (the partials'
+    traffic, in items), the fewest on a tie.  Counting waves keeps the last
+    one from running mostly empty."""
+    def time(n):
+        return -(-pairs * n // slots) * (-(-items // n) + cost) + (n > 1) * n * split_cost
+
+    return min(range(1, min(items, -(-4 * slots // pairs)) + 1), key=lambda n: (time(n), n))
+
+
+@functools.lru_cache(maxsize=256)
 def wgrad_plan(ci: int, co: int, d: int, h: int, w: int, n_sm: int,
                dtype: torch.dtype) -> WgradPlan:
     """The launch shape of H-wgrad-mma (bf16) or H-wgrad-x3 (float32).
 
-    Both: items of 4 x 32 voxels (K = 128 per item), co tiles of 16·mt with
-    mt = 2 (1 for C_out <= 16), or for bf16 mt = 3 where 48 divides C_out
-    (H-wgrad-x3 holds twice the sums in registers: mt <= 2), 8 channels of x
-    per block, and enough splits for the blocks per SM that the kernel's
-    registers and shared memory keep resident (WGRAD_MMA_BLOCKS_PER_SM,
-    WGRAD_X3_BLOCKS_PER_SM), so the card runs one even wave."""
-    th, tw = WGRAD_MMA_TILE
+    Both: co tiles of 16·mt with mt = 2 (1 for C_out <= 16), or for bf16 mt =
+    3 where 48 divides C_out (H-wgrad-x3 holds twice the sums in registers:
+    mt <= 2), 8 channels of x per block.  Items of 4 x 32 voxels and enough
+    splits for the blocks per SM that the kernel's registers and shared
+    memory keep resident (WGRAD_MMA_BLOCKS_PER_SM, WGRAD_X3_BLOCKS_PER_SM),
+    one even wave; but H-wgrad-x3 on a narrow volume (W <= 16) takes the
+    items of WGRAD_X3_ITEMS, whose lanes compute no zeros, and the splits
+    that take the fewest waves (:func:`_fewest_waves`)."""
     bf16 = dtype == torch.bfloat16
     co_tile = 48 if bf16 and co % 48 == 0 else (32 if co > 16 else 16)
-    per_sm = WGRAD_MMA_BLOCKS_PER_SM if bf16 else WGRAD_X3_BLOCKS_PER_SM
-    items = d * -(-w // tw) * -(-h // th)
     pairs = -(-ci // 8) * -(-co // co_tile)
-    n_split = max(1, min(items, -(-per_sm * n_sm // pairs)))
-    return WgradPlan(th, tw, co_tile, n_split)
+    if bf16 or w > 16:
+        th, tw = WGRAD_MMA_TILE
+        items = d * -(-w // tw) * -(-h // th)
+        per_sm = WGRAD_MMA_BLOCKS_PER_SM if bf16 else WGRAD_X3_BLOCKS_PER_SM
+        return WgradPlan(th, tw, co_tile, max(1, min(items, -(-per_sm * n_sm // pairs))))
+    nz, th, tw = WGRAD_X3_ITEMS[16 if w > 8 else 8]
+    items = -(-d // nz) * -(-w // tw) * -(-h // th)
+    n_split = _fewest_waves(pairs, items, WGRAD_X3_BLOCKS_PER_SM * n_sm, WGRAD_X3_BLOCK_COST)
+    return WgradPlan(th, tw, co_tile, n_split, nz)
 
 
-def conv3d_cf_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """(3, 3, 3, ci, co) float32 weight gradient (see the module docstring)."""
+@dataclass(frozen=True)
+class WgradWgPlan:
+    """An H-wgrad-wg launch: column tiles of ``tx`` x ``ty`` voxels of a
+    plane, ``ct`` output channels per block in ``co_tiles`` tiles, the
+    stacked layout where ``stack``, the volume's (tile, plane) items split
+    over ``n_split`` blocks per (8-channel group of x, co tile)."""
+    tx: int
+    ty: int
+    ct: int
+    co_tiles: int
+    n_split: int
+    stack: bool
+
+
+def wgrad_wg_ok(x, g) -> bool:
+    """The gate of H-wgrad-wg: the one place that decides which bf16 weight
+    gradients it takes (``chip_smoke.py`` and the tests read it).  bf16 x and
+    W >= 8; any C_in and C_out (the boxes run past the channels), and W not a
+    multiple of 8 is padded (:func:`wg_sources`).  The rest of bf16 takes
+    H-wgrad-mma: the tutorials' 4³ and 2³ levels, where the padded copies and
+    a mostly empty tile cost more than H-wgrad-mma's call (0.096 against 0.041
+    ms at (48,24) @4³ on an H100)."""
+    return x.dtype == torch.bfloat16 and x.shape[3] >= 8
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_wg_plan(ci: int, co: int, d: int, h: int, w: int, n_sm: int) -> WgradWgPlan:
+    """H-wgrad-wg's launch shape for x (ci, D, H, W) and g (co, D, H, W), W
+    already a multiple of 8: tiles 32 voxels wide (16, 8 where W is a
+    multiple of no wider one) and WGRAD_WG_TILES high; C_out in the fewest
+    tiles of at most WGRAD_WG_MAX_CT channels, even shares in multiples of 8,
+    in the stacked layout where a tile is at most WGRAD_WG_STACK_CT (two
+    thirds of the products); the splits that take the fewest waves of one
+    block per SM, a split priced by its partial's traffic
+    (:func:`_fewest_waves`: at 128³ many splits of K, at 16³-8³ few or
+    one)."""
+    tx = 32 if w % 32 == 0 else 16 if w % 16 == 0 else 8
+    ty = WGRAD_WG_TILES[tx]
+    co_tiles = -(-co // WGRAD_WG_MAX_CT)
+    ct = 8 * -(-co // (8 * co_tiles))
+    items = -(-w // tx) * -(-h // ty) * d
+    partial = 27 * -(-ci // 8) * 8 * ct * co_tiles * 4 * 2  # written, then read by the reduce
+    n_split = _fewest_waves(-(-ci // 8) * co_tiles, items, n_sm, WGRAD_WG_STAGE_COST,
+                            partial / (WGRAD_WG_VOXEL_BYTES * tx * ty))
+    return WgradWgPlan(tx, ty, ct, co_tiles, n_split, ct <= WGRAD_WG_STACK_CT)
+
+
+def conv3d_cf_wgrad(x: torch.Tensor, g: torch.Tensor, kernel=None) -> torch.Tensor:
+    """(3, 3, 3, ci, co) float32 weight gradient (see the module docstring).
+    ``kernel``: None launches the dispatch's choice; "wgrad_mma" runs
+    H-wgrad-mma on a bf16 call that :func:`wgrad_wg_ok` gives to H-wgrad-wg
+    (the two timed in turns); a CPU tensor ignores it.
+
+    H-wgrad-wg pads C_out to rows of M in eights and C_in only in the x box,
+    so a call whose C_out is not a multiple of 8 but C_in is (the penalty's
+    32->1) runs as the weight gradient of (g, x), whose taps are mirrored
+    and channels transposed: ``dw(x, g)[dz, dy, dx, i, o] = dw(g, x)[2 - dz,
+    2 - dy, 2 - dx, o, i]`` (SAME padding is symmetric).  At (32,1) @128³ on
+    an H100 0.100 ms, against 0.318 unswapped and H-wgrad-mma's 0.462
+    (``tools/ab_wgrad_wg_variants.py``)."""
     dev = x.device
     if dev.type == "cpu":
         return conv3d_cf_wgrad_reference(x, g)
     if dev.type != "cuda":
         raise ValueError(f"conv3d_cf_wgrad runs on CPU (plain) or CUDA (kernel), not {dev}")
+    if kernel not in (None, "wgrad_mma"):
+        raise ValueError(f"kernel must be None or 'wgrad_mma', got {kernel!r}")
     g = _wgrad_operands(x, g).contiguous()
     x = x.contiguous()
     ci, d, h, wd = x.shape
     co = g.shape[0]
+    bf16 = x.dtype == torch.bfloat16
+    lib = _library()
+    if bf16 and kernel is None and wgrad_wg_ok(x, g):
+        if co % 8 and ci % 8 == 0:
+            return conv3d_cf_wgrad(g, x).flip((0, 1, 2)).transpose(3, 4).contiguous()
+        xs, gs = wg_sources([x, g])
+        w8 = xs.shape[3]
+        plan = wgrad_wg_plan(ci, co, d, h, w8, _sm_count(dev.index))
+        ci_pad, co_pad = -(-ci // 8) * 8, plan.co_tiles * plan.ct
+        direct = plan.n_split == 1 and ci_pad == ci and co_pad == co
+        dw = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
+        partial = dw if direct else torch.empty((plan.n_split, 27, ci_pad, co_pad),
+                                                dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.conv3d_wgrad_wg_launch(
+                xs.data_ptr(), gs.data_ptr(), ci, co, d, h, w8, plan.tx, plan.ct, int(plan.stack),
+                plan.n_split, partial.data_ptr(), dw.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _check(lib, err, "H-wgrad-wg")
+        LAUNCHES["wgrad_wg"] += 1
+        return dw
     plan = wgrad_plan(ci, co, d, h, wd, _sm_count(dev.index), x.dtype)
     ci_pad = -(-ci // 8) * 8
     co_pad = -(-co // plan.co_tile) * plan.co_tile
     partial = torch.empty((plan.n_split, 27, ci_pad, co_pad), dtype=torch.float32, device=dev)
     dw = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
-    lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        bf16 = x.dtype == torch.bfloat16
-        launch = lib.conv3d_wgrad_mma_launch if bf16 else lib.conv3d_wgrad_x3_launch
         vec = int(wd % (8 if bf16 else 4) == 0 and _aligned(x, g))
-        err = launch(x.data_ptr(), g.data_ptr(), ci, co, d, h, wd, plan.co_tile // 16,
-                     plan.n_split, vec, partial.data_ptr(), dw.data_ptr(), stream)
+        if bf16:
+            err = lib.conv3d_wgrad_mma_launch(x.data_ptr(), g.data_ptr(), ci, co, d, h, wd,
+                                              plan.co_tile // 16, plan.n_split, vec,
+                                              partial.data_ptr(), dw.data_ptr(), stream)
+        else:
+            err = lib.conv3d_wgrad_x3_launch(x.data_ptr(), g.data_ptr(), ci, co, d, h, wd,
+                                             plan.co_tile // 16, plan.tw, plan.n_split, vec,
+                                             partial.data_ptr(), dw.data_ptr(), stream)
     _check(lib, err, "H-wgrad-mma" if bf16 else "H-wgrad-x3")
     LAUNCHES["wgrad_mma" if bf16 else "wgrad_x3"] += 1
     return dw

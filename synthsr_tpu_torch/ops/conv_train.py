@@ -5,15 +5,16 @@
 ``torch.autograd.Function`` around the kernels of ``ops/conv_cf.py``:
 
 - **forward**: one :func:`~synthsr_tpu_torch.ops.conv_cf.conv3d_cf` call
-  (on a card H-fwd-mma in bf16 and the split-TF32 H-fwd-x3 in float32, or
-  H-first-mma / H-first-x3 for a one-source conv with C_in <= 2 and
-  C_out <= 32; bias and activation in its epilogue);
+  (on a card H-fwd-wg in bf16, H-fwd-mma for what its gate refuses, and the
+  split-TF32 H-fwd-x3 in float32, or H-first-mma / H-first-x3 for a
+  one-source conv with C_in <= 2 and C_out <= 32; bias and activation in its
+  epilogue);
 - **input gradient**: the vjp of a SAME stride-1 3³ conv is itself a SAME
   conv with the weights flipped in space and transposed in/out, so ``dx`` is
   one more forward-kernel launch on ``dpre``, split by channel offset per
   source;
-- **weight gradient**: one H-wgrad-mma (bf16) or H-wgrad-x3 (float32)
-  launch per source
+- **weight gradient**: one H-wgrad-wg (bf16, W >= 8), H-wgrad-mma
+  (the rest of bf16) or H-wgrad-x3 (float32) launch per source
   (:func:`~synthsr_tpu_torch.ops.conv_cf.conv3d_cf_wgrad`);
 - **activation gradient**: from the SAVED OUTPUT (elu' = 1 where y > 0 else
   y + 1; relu' = [y > 0]; leaky' = 1 where y >= 0 else 0.2), so no

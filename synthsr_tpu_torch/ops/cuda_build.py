@@ -26,9 +26,10 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("conv3d_fwd_wg.cu", "conv3d_first_x3.cu", "conv3d_wgrad.cu", "conv3d_fwd_mma.cu",
-           "conv3d_wgrad_mma.cu", "conv3d_first_mma.cu", "conv3d_fwd_x3.cu", "conv3d_wgrad_x3.cu")
-HEADERS = ("mma_common.cuh",)
+SOURCES = ("conv3d_fwd_wg.cu", "conv3d_wgrad_wg.cu", "conv3d_first_x3.cu", "conv3d_wgrad.cu",
+           "conv3d_fwd_mma.cu", "conv3d_wgrad_mma.cu", "conv3d_first_mma.cu", "conv3d_fwd_x3.cu",
+           "conv3d_wgrad_x3.cu")
+HEADERS = ("mma_common.cuh", "wg_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,10 +47,13 @@ _SIGNATURES = {
                                  _P], _I),
     "conv3d_wgrad_mma_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                                  _P], _I),
-    "conv3d_wgrad_x3_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+    "conv3d_wgrad_x3_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                _P], _I),
+    "conv3d_wgrad_wg_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                                 _P], _I),
     "conv3d_fwd_mma_steps": ([], _I),
     "conv3d_fwd_wg_config": ([_I], _I),
+    "conv3d_wgrad_wg_config": ([_I], _I),
     "conv3d_first_mma_kpad": ([_I], _I),
     "conv3d_first_mma_max_cout": ([], _I),
     "conv3d_first_x3_steps": ([_I], _I),

@@ -125,7 +125,7 @@ def test_cpu_dispatch_is_plain_and_launches_nothing():
     want = conv3d_cf_reference(x, w, activation="elu")
     assert torch.equal(got, want)
     assert LAUNCHES == {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
-                        "wgrad_x3": 0, "fwd_wg": 0}
+                        "wgrad_x3": 0, "fwd_wg": 0, "wgrad_wg": 0}
     with pytest.raises(ValueError):
         conv3d_cf(x.to("meta"), w.to("meta"))
 

@@ -4,8 +4,8 @@ weight-gradient kernels (K6, K7) and ``conv3d_cf_train`` custom_vjp, run in
 interpret mode on the same numpy inputs.
 
 On the CPU ``conv3d_cf_wgrad`` is its plain version (float32
-``conv3d_weight``); the ``cuda``-marked test holds H-wgrad-mma (bf16) and
-H-wgrad-x3 (float32) against it on the card.  JAX is imported inside the tests
+``conv3d_weight``); the ``cuda``-marked test holds H-wgrad-wg and H-wgrad-mma
+(bf16) and H-wgrad-x3 (float32) against it on the card.  JAX is imported inside the tests
 that compare against it, so the ``cuda`` test also runs where JAX is not
 installed.
 """
@@ -59,7 +59,7 @@ def test_wgrad_rounds_g_to_x_dtype_and_dispatches_plain_on_cpu():
     want = conv3d_cf_wgrad_reference(x.float(), g.to(torch.bfloat16).float())
     assert torch.equal(got, want)
     assert LAUNCHES == {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
-                        "wgrad_x3": 0, "fwd_wg": 0}
+                        "wgrad_x3": 0, "fwd_wg": 0, "wgrad_wg": 0}
     with pytest.raises(ValueError):
         conv3d_cf_wgrad(x.to("meta"), g.to("meta"))
     with pytest.raises(ValueError):
@@ -68,25 +68,45 @@ def test_wgrad_rounds_g_to_x_dtype_and_dispatches_plain_on_cpu():
 
 @pytest.mark.parametrize("shape", [(4, 24, 128, 128, 128), (48, 24, 128, 128, 128),
                                    (96, 48, 64, 64, 64), (384, 384, 8, 8, 8),
-                                   (5, 13, 7, 9, 20), (2, 3, 1, 1, 1)])
+                                   (5, 13, 7, 9, 20), (2, 3, 1, 1, 1),
+                                   (192, 192, 16, 16, 16), (48, 24, 3, 5, 12)])
 def test_wgrad_plan(shape):
-    """H-wgrad-mma (bf16) and H-wgrad-x3 (float32): items of 4 x 32 voxels,
-    co tiles of 48 where 48 divides C_out (bf16 only), else 32 (16 for C_out
-    <= 16),
-    WGRAD_MMA_BLOCKS_PER_SM (bf16) or WGRAD_X3_BLOCKS_PER_SM (float32) blocks
-    per SM on 132 SMs unless the volume runs out, at least one item per
-    split."""
+    """H-wgrad-mma (bf16) and H-wgrad-x3 (float32): co tiles of 48 where 48
+    divides C_out (bf16 only), else 32 (16 for C_out <= 16); at least one
+    item per split.  Items of 4 x 32 voxels and WGRAD_MMA_BLOCKS_PER_SM
+    (bf16) or WGRAD_X3_BLOCKS_PER_SM (float32) blocks per SM on 132 SMs
+    unless the volume runs out; but H-wgrad-x3 on a narrow volume (W <= 16)
+    takes items of 128 voxels of WGRAD_X3_ITEMS (8 x 16, or 2 planes of 8 x
+    8), and as many splits as take the fewest waves of its resident blocks."""
     ci, co, d, h, w = shape
     for dtype, per_sm in ((torch.bfloat16, conv_cf.WGRAD_MMA_BLOCKS_PER_SM),
                           (torch.float32, conv_cf.WGRAD_X3_BLOCKS_PER_SM)):
         plan = wgrad_plan(*shape, n_sm=132, dtype=dtype)
-        assert (plan.th, plan.tw) == conv_cf.WGRAD_MMA_TILE
         assert plan.co_tile == (48 if co % 48 == 0 and dtype == torch.bfloat16 else
                                 32 if co > 16 else 16)
-        items = d * -(-h // plan.th) * -(-w // plan.tw)
+        narrow = dtype == torch.float32 and w <= 16
+        if narrow:
+            assert (plan.nz, plan.th, plan.tw) == conv_cf.WGRAD_X3_ITEMS[16 if w > 8 else 8]
+        else:
+            assert (plan.nz, plan.th, plan.tw) == (1, *conv_cf.WGRAD_MMA_TILE)
+        assert plan.nz * plan.th * plan.tw == 128
+        items = -(-d // plan.nz) * -(-h // plan.th) * -(-w // plan.tw)
         assert 1 <= plan.n_split <= items
-        blocks = plan.n_split * -(-ci // 8) * -(-co // plan.co_tile)
-        assert blocks >= min(per_sm * 132, items)
+        pairs = -(-ci // 8) * -(-co // plan.co_tile)
+        blocks = plan.n_split * pairs
+        if not narrow:
+            assert blocks >= min(per_sm * 132, items)
+            continue
+        slots = per_sm * 132
+
+        def time(n):  # waves x (items a block + its fixed cost)
+            return -(-pairs * n // slots) * (-(-items // n) + conv_cf.WGRAD_X3_BLOCK_COST)
+        assert all(time(plan.n_split) <= time(n) for n in range(1, items + 1))
+    # the 16^3 and 8^3 float32 rows of the train step: no lane past the volume's
+    # edge; at 8^3 4 items a block (16 of 4 x 32 before, three quarters masked)
+    assert wgrad_plan(192, 192, 16, 16, 16, 132, torch.float32) == \
+        conv_cf.WgradPlan(8, 16, 32, 3, 1)
+    assert wgrad_plan(384, 384, 8, 8, 8, 132, torch.float32) == conv_cf.WgradPlan(8, 8, 32, 1, 2)
 
 
 @pytest.mark.parametrize("cins,activation,want_dx", [
@@ -152,12 +172,13 @@ def test_conv_train_bf16_keeps_dpre_in_activation_dtype():
 
 @pytest.mark.cuda
 def test_wgrad_kernel_matches_plain_on_card():
-    """H-wgrad-mma (bf16) and H-wgrad-x3 (float32) against
-    conv3d_cf_wgrad_reference on the card, at ragged shapes (tiles cut at
-    every face, ci and co not multiples of the channel group and co tile,
-    W = 20 on the 2-byte load path) and the train step's first-conv shape
-    (ci = 4), and two calls bit-equal.  The reference is float32 with TF32
-    off."""
+    """H-wgrad-mma (bf16, by ``kernel="wgrad_mma"`` where the gate gives the
+    call to H-wgrad-wg), H-wgrad-wg (bf16, W >= 8) and H-wgrad-x3
+    (float32) against conv3d_cf_wgrad_reference on the card, at ragged shapes
+    (tiles cut at every face, ci and co not multiples of the channel group
+    and co tile, W = 20 on the 2-byte load path) and the train step's
+    first-conv shape (ci = 4), and two calls bit-equal.  The reference is
+    float32 with TF32 off."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     old = torch.backends.cudnn.allow_tf32
@@ -165,14 +186,17 @@ def test_wgrad_kernel_matches_plain_on_card():
     try:
         rng = np.random.default_rng(8)
         dev = torch.device("cuda")
-        for dtype, kernel in ((torch.bfloat16, "wgrad_mma"), (torch.float32, "wgrad_x3")):
+        for dtype, forced in ((torch.bfloat16, "wgrad_mma"), (torch.bfloat16, None),
+                              (torch.float32, None)):
             for ci, co, d, h, w in ((5, 13, 7, 9, 20), (24, 72, 8, 12, 48), (3, 24, 16, 5, 40),
                                     (4, 24, 16, 16, 32), (48, 96, 6, 8, 64)):
                 x = _t(rng.normal(size=(ci, d, h, w))).to(dev, dtype)
                 g = _t(rng.normal(size=(co, d, h, w))).to(dev, dtype)
+                kernel = "wgrad_x3" if dtype == torch.float32 else \
+                    "wgrad_wg" if forced is None and conv_cf.wgrad_wg_ok(x, g) else "wgrad_mma"
                 before = LAUNCHES[kernel]
-                got = conv3d_cf_wgrad(x, g)
-                again = conv3d_cf_wgrad(x, g)
+                got = conv3d_cf_wgrad(x, g, kernel=forced)
+                again = conv3d_cf_wgrad(x, g, kernel=forced)
                 torch.cuda.synchronize()
                 assert LAUNCHES[kernel] == before + 2
                 want = conv3d_cf_wgrad_reference(x, g)

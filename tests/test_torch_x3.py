@@ -17,9 +17,10 @@ The twins restate that arithmetic and the layouts it rests on:
   tap (one m16n8k8 step each), the split B fragments read back from
   ``pack_conv`` in the lanes' order, then the epilogue (accum, bias,
   activation, post, head);
-- H-wgrad-x3: (plane, 4 x 32 tile) items, g zero outside the volume, 27
-  GEMMs per item over its 128 voxels with x shifted by the tap, the items
-  split over ``wgrad_plan``'s n_split blocks and the partials summed in split
+- H-wgrad-x3: items of 128 voxels (a plane's 4 x 32 tile; on a narrow
+  volume 8 x 16, or 2 planes of 8 x 8), g zero outside the volume, 27 GEMMs
+  per item over its 128 voxels with x shifted by the tap, the items split
+  over ``wgrad_plan``'s n_split blocks and the partials summed in split
   order;
 - H-first-x3: one GEMM of A = the taps of the zero-padded volume, split once
   as the kernel stages its halo (column k = 8s + kk of step s: tap
@@ -301,24 +302,24 @@ def wgrad_x3_twin(x, g, n_sm=132, plain_tf32=False):
     ci, d, h, w = x.shape
     co = g.shape[0]
     plan = wgrad_plan(ci, co, d, h, w, n_sm, torch.float32)
-    th, tw = plan.th, plan.tw
-    hp, wp = -(-h // th) * th, -(-w // tw) * tw
+    nz, th, tw = plan.nz, plan.th, plan.tw
+    dp, hp, wp = -(-d // nz) * nz, -(-h // th) * th, -(-w // tw) * tw
     ci_pad, co_pad = -(-ci // 8) * 8, -(-co // plan.co_tile) * plan.co_tile
     xs = F.pad(x.float(), (0, 0, 0, 0, 0, 0, 0, ci_pad - ci)).permute(1, 2, 3, 0)
-    xs = F.pad(xs, (0, 0, 1, wp - w + 1, 1, hp - h + 1, 1, 1))
-    gs = F.pad(g.float(), (0, wp - w, 0, hp - h, 0, 0, 0, co_pad - co))
-    gb, gsm = split_tf32(gs.reshape(co_pad, d, hp // th, th, wp // tw, tw))
+    xs = F.pad(xs, (0, 0, 1, wp - w + 1, 1, hp - h + 1, 1, dp - d + 1))
+    gs = F.pad(g.float(), (0, wp - w, 0, hp - h, 0, dp - d, 0, co_pad - co))
+    gb, gsm = split_tf32(gs.reshape(co_pad, dp // nz, nz, hp // th, th, wp // tw, tw))
     xb, xsm = split_tf32(xs)
     taps = []
     for tap in range(27):
         dz, dy, dx = _tap(tap)
 
         def view(t):
-            return t[dz:dz + d, dy:dy + hp, dx:dx + wp].reshape(d, hp // th, th, wp // tw, tw,
-                                                                ci_pad)
+            return t[dz:dz + dp, dy:dy + hp, dx:dx + wp].reshape(
+                dp // nz, nz, hp // th, th, wp // tw, tw, ci_pad)
 
-        def gemm(xt, gt):
-            return torch.einsum("zAaBbc,ozAaBb->zABco", view(xt), gt)
+        def gemm(xt, gt):  # an item's sum over its nz x th x tw voxels
+            return torch.einsum("ZzAaBbc,oZzAaBb->ZABco", view(xt), gt)
 
         item = gemm(xb, gb)
         if not plain_tf32:  # small_g·big_x + big_g·small_x, then big·big
@@ -339,6 +340,9 @@ def wgrad_x3_twin(x, g, n_sm=132, plain_tf32=False):
     (24, 72, 2, 5, 33, 1),    # one split of all items
     (1, 32, 2, 8, 32, 132),   # C_in 1 (the critic's first conv), padded to 8
     (32, 1, 2, 8, 32, 132),   # C_out 1 (the penalty's 32 -> 1 conv), padded to 16
+    (24, 48, 3, 16, 16, 132),  # W 16: items of 8 x 16
+    (16, 24, 5, 8, 8, 132),   # W 8: items of 2 planes x 8 x 8, the last plane pair past D
+    (8, 40, 4, 6, 12, 2),     # W 12: 8 x 16 items past W and H, few splits
 ])
 def test_wgrad_x3_twin_matches_plain(ci, co, d, h, w, n_sm):
     rng = np.random.default_rng(ci * co + w)
@@ -425,12 +429,14 @@ def test_first_x3_matches_plain_on_card():
 @pytest.mark.cuda
 def test_wgrad_x3_matches_plain_on_card():
     """H-wgrad-x3 against conv3d_cf_wgrad_reference (float32, TF32 off),
-    ragged and C_in / C_out 1, and two calls bit-equal."""
+    ragged, C_in / C_out 1 and narrow (W 16, 12, 8 and 6, the last two on the
+    4-byte path), and two calls bit-equal."""
     old = _on_card()
     try:
         rng = np.random.default_rng(10)
         for ci, co, d, h, w in ((5, 13, 3, 9, 20), (24, 72, 4, 12, 48), (1, 32, 4, 8, 32),
-                                (32, 1, 4, 8, 32)):
+                                (32, 1, 4, 8, 32), (24, 48, 3, 16, 16), (16, 24, 5, 8, 8),
+                                (8, 40, 4, 6, 12), (7, 16, 3, 5, 6)):
             x, g = _f32(rng, ci, d, h, w).cuda(), _f32(rng, co, d, h, w).cuda()
             before = LAUNCHES["wgrad_x3"]
             got, again = conv3d_cf_wgrad(x, g), conv3d_cf_wgrad(x, g)

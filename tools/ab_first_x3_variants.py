@@ -18,13 +18,11 @@ mean ms over the turns.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
+from ab_common import build_variants, device_line
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -62,55 +60,15 @@ REPS = 20
 ACT = {"elu": 1, "leaky": 3}
 
 
-def build_variants(cuda_build):
-    """One library per distinct source, compiled in parallel; returns each
-    variant's library and ptxas summary."""
-    from chip_smoke import ptxas_summary
-
-    text = (cuda_build.CSRC_DIR / "conv3d_first_x3.cu").read_text()
-    nvcc = cuda_build.find_nvcc()
-    jobs = {}
-    keys = []
-    for name, subs, _, _ in VARIANTS:
-        src = text
-        for old, new in subs:
-            if src.count(old) != 1:
-                raise RuntimeError(f"{name}: {old!r} is not in the source exactly once")
-            src = src.replace(old, new)
-        key = hashlib.sha256(src.encode()).hexdigest()[:16]
-        keys.append(key)
-        if key in jobs:
-            continue
-        out = cuda_build.BUILD_DIR / "variants" / key
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "v.cu").write_text(src)
-        cmd = [nvcc, *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC_DIR), "-shared", "-o",
-               str(out / "v.so"), str(out / "v.cu")]
-        jobs[key] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT, text=True))
-    built = {}
-    argtypes, restype = cuda_build._SIGNATURES["conv3d_first_x3_launch"]
-    for key, (out, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(out / "v.so"))
-        lib.conv3d_first_x3_launch.argtypes = argtypes
-        lib.conv3d_first_x3_launch.restype = restype
-        built[key] = (lib, ptxas_summary(log))
-    return [built[k][0] for k in keys], [built[k][1] for k in keys]
-
-
 def main():
     if not torch.cuda.is_available():
         sys.exit("ab_first_x3_variants: no CUDA device")
-    from synthsr_tpu_torch.ops import conv_cf, cuda_build
+    from synthsr_tpu_torch.ops import conv_cf
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi, flush=True)
+    print(device_line(), flush=True)
     conv_cf.build_kernels()
-    libs, regs = build_variants(cuda_build)
+    libs, regs = zip(*build_variants("conv3d_first_x3.cu", [v[1] for v in VARIANTS],
+                                     ("conv3d_first_x3_launch",)))
     for (name, _, _, _), r in zip(VARIANTS, regs):
         print(f"  {name:40s} ptxas {r}", flush=True)
     dev = torch.device("cuda")

@@ -32,31 +32,24 @@ JSON line per process, then per checkout the medians and ranges.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
-import subprocess
-import sys
 import tempfile
 import time
-from pathlib import Path
 
 import numpy as np
+from ab_common import open_checkout, run_in_turns, turns_main, warm
 
-ROOT = Path(__file__).resolve().parent.parent
 NET_REPS = 3
 STEPS = 8
 KERNEL_REPS = 10
 HOST_BOUND_MS = 0.1
 HOST_REPS = 1000
-WARM_MATMULS = 100  # float32 4096^2 products run before anything is timed
 
 
 def worker(checkout):
-    checkout = Path(checkout).resolve()
-    sys.path.insert(0, str(checkout))
+    smoke = open_checkout(checkout)
     import torch
-    import synthsr_tpu_torch
     from synthsr_tpu_torch.cli import predict
     from synthsr_tpu_torch.models.unet import UNet3D
     from synthsr_tpu_torch.models.weights import random_variables, variables_to_state_dict
@@ -64,20 +57,11 @@ def worker(checkout):
     from synthsr_tpu_torch.train.training import make_train_step
     from synthsr_tpu_torch.utils.finite_guard import adam_init
 
-    if checkout not in Path(synthsr_tpu_torch.__file__).resolve().parents:
-        raise RuntimeError(f"imported {synthsr_tpu_torch.__file__}, not from {checkout}")
-    spec = importlib.util.spec_from_file_location("chip_smoke_inputs", ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     conv_cf.build_kernels()
     dev = torch.device("cuda")
-    warm = torch.randn(4096, 4096, device=dev)  # brings the clocks up before the first row
-    for _ in range(WARM_MATMULS):
-        warm @ warm
-    torch.cuda.synchronize()
-    del warm
+    warm(torch.float32)  # brings the clocks up before the first row
     rng = np.random.default_rng(0)
     result = {"checkout": str(checkout), "kernel_ms": {}, "host_us": {}}
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -151,18 +135,7 @@ def worker(checkout):
 
 
 def main(checkouts):
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi, flush=True)
-    runs = []
-    for checkout in checkouts + checkouts[::-1]:
-        proc = subprocess.run([sys.executable, __file__, "--worker", checkout],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode:
-            sys.exit(f"{checkout}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
-        line = proc.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        runs.append(json.loads(line))
+    runs = run_in_turns(__file__, checkouts)
     names = list(dict.fromkeys(r["checkout"] for r in runs))
     for row in runs[0]["kernel_ms"]:
         ms = {c: [r["kernel_ms"][row] for r in runs if r["checkout"] == c] for c in names}
@@ -188,9 +161,4 @@ def main(checkouts):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
-        worker(sys.argv[2])
-    elif len(sys.argv) >= 3 and not sys.argv[1].startswith("-"):
-        main(sys.argv[1:])
-    else:
-        sys.exit(__doc__)
+    turns_main(__doc__, worker, main)

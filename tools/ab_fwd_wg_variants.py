@@ -15,18 +15,16 @@ mean ms over the turns and its share of the row's bound.
 
 from __future__ import annotations
 
-import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
+from ab_common import build_variants, device_line
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SRC = ROOT / "synthsr_tpu_torch" / "csrc" / "conv3d_fwd_wg.cu"
 CONFIGS = ("X(8, 4, 2) X(16, 4, 2) X(24, 4, 2) X(32, 4, 1) X(48, 2, 2) X(64, 2, 1) X(72, 2, 1) "
            "X(96, 2, 1) \\\n      X(128, 1, 1) X(144, 1, 1) X(192, 1, 1)")
 USED = "X(24, 4, 2) X(48, 2, 2) X(96, 2, 1) X(192, 1, 1)"
@@ -62,43 +60,17 @@ ROWS = [((24,), 24, (256, 256, 256), "bias+elu"), ((24, 48), 24, (256, 256, 256)
         ((96,), 96, (64, 64, 64), "bias+elu"), ((192,), 192, (32, 32, 32), "bias+elu"),
         ((128,), 64, (32, 32, 32), "dx")]
 REPS = 5
-_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def build():
-    """One library per variant, compiled in parallel into the kernels' build
-    directory (git-ignored); returns {name: CDLL}."""
-    import chip_smoke
-    from synthsr_tpu_torch.ops import cuda_build
-
-    out = cuda_build.BUILD_DIR / "fwd_wg_variants"
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc = cuda_build.find_nvcc()
-    base = SRC.read_text()
-    assert CONFIGS in base
-    procs = {}
-    for i, (name, subs, _) in enumerate(VARIANTS):
-        s = base.replace(CONFIGS, USED + " X(64, 2, 1)")
-        for a, b in subs:
-            assert a in s, (name, a)
-            s = s.replace(a, b)
-        cu = out / f"v{i}.cu"
-        cu.write_text(s)
-        procs[name] = (out / f"v{i}.so", subprocess.Popen(
-            [nvcc, *cuda_build.NVCC_FLAGS, "-shared", "-o", str(out / f"v{i}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    """One library per variant (only the instances the rows use); returns
+    {name: CDLL}."""
+    built = build_variants("conv3d_fwd_wg.cu",
+                           [[(CONFIGS, USED + " X(64, 2, 1)"), *subs] for _, subs, _ in VARIANTS],
+                           ("conv3d_fwd_wg_launch", "conv3d_fwd_wg_config"))
     libs = {}
-    for name, (so, p) in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            sys.exit(f"{name}: nvcc failed\n{log[-3000:]}")
-        print(f"{name}: {chip_smoke.ptxas_summary(log)}", flush=True)
-        lib = ctypes.CDLL(str(so))
-        lib.conv3d_fwd_wg_launch.argtypes = [_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P,
-                                             _P, _I, _I, _P, _P]
-        lib.conv3d_fwd_wg_launch.restype = _I
-        lib.conv3d_fwd_wg_config.argtypes = [_I]
-        lib.conv3d_fwd_wg_config.restype = _I
+    for (name, _, _), (lib, regs) in zip(VARIANTS, built):
+        print(f"{name}: {regs}", flush=True)
         libs[name] = lib
     return libs
 
@@ -109,9 +81,7 @@ def main():
     import chip_smoke
     from synthsr_tpu_torch.ops import conv_cf
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(f"device: {smi}", flush=True)
+    print(f"device: {device_line()}", flush=True)
     libs = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count

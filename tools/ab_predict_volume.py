@@ -16,36 +16,25 @@ JSON line per process, then per (volume, checkout) the median and range.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
-import subprocess
-import sys
 import tempfile
 import time
-from pathlib import Path
 
 import numpy as np
+from ab_common import open_checkout, run_in_turns, turns_main
 
-ROOT = Path(__file__).resolve().parent.parent
 REPS = 5
 NET_REPS = 3
 
 
 def worker(checkout):
-    checkout = Path(checkout).resolve()
-    sys.path.insert(0, str(checkout))
+    smoke = open_checkout(checkout)
     import torch
-    import synthsr_tpu_torch
     from synthsr_tpu_torch.cli import predict
     from synthsr_tpu_torch.models.weights import random_variables, variables_to_state_dict
     from synthsr_tpu_torch.ops import conv_cf
 
-    if checkout not in Path(synthsr_tpu_torch.__file__).resolve().parents:
-        raise RuntimeError(f"imported {synthsr_tpu_torch.__file__}, not from {checkout}")
-    spec = importlib.util.spec_from_file_location("chip_smoke_inputs", ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     conv_cf.build_kernels()
     rng = np.random.default_rng(0)
     vols = [*smoke.VOLUMES[:2], (*smoke.LARGE_FOV, True)]  # the 256^3 T1, clinical, large FOV
@@ -76,18 +65,7 @@ def worker(checkout):
 
 
 def main(checkouts):
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi, flush=True)
-    runs = []
-    for checkout in checkouts + checkouts[::-1]:
-        proc = subprocess.run([sys.executable, __file__, "--worker", checkout],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode:
-            sys.exit(f"{checkout}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
-        line = proc.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        runs.append(json.loads(line))
+    runs = run_in_turns(__file__, checkouts)
     for name in runs[0]["volumes"]:
         for checkout in dict.fromkeys(r["checkout"] for r in runs):
             mine = [r["volumes"][name] for r in runs if r["checkout"] == checkout]
@@ -99,9 +77,4 @@ def main(checkouts):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
-        worker(sys.argv[2])
-    elif len(sys.argv) >= 3 and not sys.argv[1].startswith("-"):
-        main(sys.argv[1:])
-    else:
-        sys.exit(__doc__)
+    turns_main(__doc__, worker, main)
