@@ -7,6 +7,11 @@ per-axis matrices), RAS alignment, min-max normalisation, centre zero-pad to
 a multiple of 32, flip-averaged TTA, output ``clip(255·(y0+y1)/2, 0, 128)``,
 unpad.
 
+While the tracer of ``utils/profiling`` is on, each ``predict_volume`` is a
+``predict.volume`` span tiled by ``predict.resample``, ``predict.align``,
+``predict.normalise``, ``predict.pad``, ``predict.upload``,
+``predict.network`` and ``predict.output``.
+
 The network runs on CUDA unless ``--cpu`` (or ``device="cpu"``) is given; a
 missing GPU raises.  ``--fast_inference`` (default on) runs the fast forward
 (``models/unet_cf.py``): its convs launch the hand-written kernels on a card
@@ -32,6 +37,7 @@ from ..models.weights import load_unet_weights
 from ..ops.host_matrices import resample_volume_matrices
 from ..ops.linops import apply_axis_ops
 from ..utils.misc import list_images_in_folder
+from ..utils.profiling import span
 from ._pipeline import run_pipelined
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -167,27 +173,37 @@ class Predictor:
         normalisation and centre pad to a multiple of 32.
 
         Returns (x (1, 1, D, H, W) float32 on the device, crop slices, aff)."""
-        im = np.asarray(im, np.float32)
-        if self.ct:
-            im = np.clip(im, 0.0, 80.0)
-        mats, _, aff = resample_volume_matrices(im.shape, aff, [1.0, 1.0, 1.0])
-        im = device_axis_ops(im, mats, self.device)
-        im, aff2 = align_volume_to_ref(im, aff, aff_ref=np.eye(4), return_aff=True,
-                                       n_dims=3)
-        im = im - np.min(im)
-        mx = np.max(im)
-        if mx > 0:
-            im = im / mx
-        padded, crop = pad_to_32(im.shape)
-        s = np.zeros((1, 1, *padded), np.float32)
-        s[(0, 0) + crop] = im
-        return torch.from_numpy(s).to(self.device), crop, aff2
+        with span("predict.resample"):
+            im = np.asarray(im, np.float32)
+            if self.ct:
+                im = np.clip(im, 0.0, 80.0)
+            mats, _, aff = resample_volume_matrices(im.shape, aff, [1.0, 1.0, 1.0])
+            im = device_axis_ops(im, mats, self.device)
+        with span("predict.align"):
+            im, aff2 = align_volume_to_ref(im, aff, aff_ref=np.eye(4), return_aff=True,
+                                           n_dims=3)
+        with span("predict.normalise"):
+            im = im - np.min(im)
+            mx = np.max(im)
+            if mx > 0:
+                im = im / mx
+        with span("predict.pad"):
+            padded, crop = pad_to_32(im.shape)
+            s = np.zeros((1, 1, *padded), np.float32)
+            s[(0, 0) + crop] = im
+        with span("predict.upload"):
+            x = torch.from_numpy(s).to(self.device)
+        return x, crop, aff2
 
     def predict_volume(self, im: np.ndarray, aff: np.ndarray):
         """Run the full pipeline on one volume; returns (pred, aff)."""
-        x, crop, aff2 = self.prepare(im, aff)
-        pred = torch.clamp(255.0 * self.network(x), 0.0, 128.0)
-        return pred[0, 0].cpu().numpy()[crop], aff2
+        with span("predict.volume"):
+            x, crop, aff2 = self.prepare(im, aff)
+            with span("predict.network"):
+                y = self.network(x)
+            with span("predict.output"):
+                pred = torch.clamp(255.0 * y, 0.0, 128.0)
+                return pred[0, 0].cpu().numpy()[crop], aff2
 
     def predict_file(self, path_in: str, path_out: str):
         im, aff, _ = load_volume(path_in, im_only=False, dtype="float")

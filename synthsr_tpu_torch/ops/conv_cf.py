@@ -66,17 +66,25 @@ and mbarrier rings), the rest of bf16 (the tutorials' 4³ and 2³ levels)
 K7.
 
 ``LAUNCHES`` counts kernel launches per kernel, under its own key, and
-nothing else.
+nothing else.  While the tracer of ``utils/profiling`` is on, the CUDA path
+of :func:`conv3d_cf` and :func:`conv3d_cf_wgrad` counts each call
+(``conv.calls``), its host seconds from entry to return (``conv.host_s``:
+the gates, :func:`wg_sources`' copies, the tensor-map arguments and the
+launch) and each weight packed at call time (``conv.packs``: a raw weight
+given to a forward call, :func:`pack_conv` or :func:`_wg_weights` inside
+the launch).
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from . import cuda_build
 
 LAUNCHES = {"first_x3": 0, "first_mma": 0, "fwd_mma": 0, "wgrad_mma": 0, "fwd_x3": 0,
@@ -149,6 +157,9 @@ def _library():
     if _lib is None:
         build_kernels()
     return _lib
+
+
+profiling.register("launches", LAUNCHES)
 
 
 def reset_launch_counts():
@@ -505,6 +516,7 @@ def conv3d_cf(x, w, bias=None, activation=None, post=None, head=None, accum=None
     None launches the dispatch's choice; "fwd_mma" runs H-fwd-mma on a bf16
     call that :func:`fwd_wg_ok` gives to H-fwd-wg (the two timed in turns);
     a CPU tensor ignores it."""
+    t0 = time.perf_counter() if profiling.enabled else None
     srcs = _sources(x)
     dev = srcs[0].device
     if dev.type == "cpu":
@@ -514,7 +526,16 @@ def conv3d_cf(x, w, bias=None, activation=None, post=None, head=None, accum=None
         raise ValueError(f"conv3d_cf runs on CPU (plain) or CUDA (kernels), not {dev}")
     if kernel not in (None, "fwd_mma"):
         raise ValueError(f"kernel must be None or 'fwd_mma', got {kernel!r}")
-    return _launch(srcs, w, bias, activation, post, head, accum, kernel)
+    out = _launch(srcs, w, bias, activation, post, head, accum, kernel)
+    if t0 is not None:
+        _count_call(t0)
+    return out
+
+
+def _count_call(t0: float):
+    """Count one CUDA conv call and its host seconds since ``t0``."""
+    profiling.count("conv.calls")
+    profiling.count("conv.host_s", time.perf_counter() - t0)
 
 
 def _f32_on(t, dev, shape, name):
@@ -576,6 +597,7 @@ def _launch(srcs, w, bias, activation, post, head, accum, kernel=None):
         if first and cin in FIRST_MMA_KPAD and cout <= FIRST_MMA_MAX_COUT:
             if pc is None:
                 pc = pack_conv(w.to(dev), dtype, cins)
+                profiling.count("conv.packs")
             out = torch.empty((cout, d, h, wd), dtype=dtype, device=dev)
             if dtype == torch.bfloat16:
                 vec = int(wd % 8 == 0 and _aligned(srcs[0], out))
@@ -602,7 +624,11 @@ def _launch(srcs, w, bias, activation, post, head, accum, kernel=None):
         if pc is not None and _split_key(pc.splits) != _split_key(cins):
             raise ValueError(f"weights packed for sources {pc.splits}, got {tuple(cins)}")
         if kernel is None and fwd_wg_ok(srcs, cout, accum, head):
-            wgw = pc.wg if pc is not None else _wg_weights(w.to(dev), cins)
+            if pc is not None:
+                wgw = pc.wg
+            else:
+                wgw = _wg_weights(w.to(dev), cins)
+                profiling.count("conv.packs")
             plan = wg_plan(cout)
             ks = wg_sources(srcs)
             w8 = ks[0].shape[3]
@@ -616,6 +642,7 @@ def _launch(srcs, w, bias, activation, post, head, accum, kernel=None):
             return out if kout is out else kout[..., :wd].contiguous()
         if pc is None:
             pc = pack_conv(w.to(dev), dtype, cins)
+            profiling.count("conv.packs")
         if head is not None and cout > 8 * pc.ng:
             raise ValueError(f"head folding needs cout <= {8 * pc.ng}, got {cout}")
         if dtype == torch.bfloat16:
@@ -782,6 +809,7 @@ def conv3d_cf_wgrad(x: torch.Tensor, g: torch.Tensor, kernel=None) -> torch.Tens
     2 - dy, 2 - dx, o, i]`` (SAME padding is symmetric).  At (32,1) @128³ on
     an H100 0.100 ms, against 0.318 unswapped and H-wgrad-mma's 0.462
     (``tools/ab_wgrad_wg_variants.py``)."""
+    t0 = time.perf_counter() if profiling.enabled else None
     dev = x.device
     if dev.type == "cpu":
         return conv3d_cf_wgrad_reference(x, g)
@@ -789,6 +817,14 @@ def conv3d_cf_wgrad(x: torch.Tensor, g: torch.Tensor, kernel=None) -> torch.Tens
         raise ValueError(f"conv3d_cf_wgrad runs on CPU (plain) or CUDA (kernel), not {dev}")
     if kernel not in (None, "wgrad_mma"):
         raise ValueError(f"kernel must be None or 'wgrad_mma', got {kernel!r}")
+    dw = _wgrad_launch(x, g, kernel)
+    if t0 is not None:
+        _count_call(t0)
+    return dw
+
+
+def _wgrad_launch(x, g, kernel):
+    dev = x.device
     g = _wgrad_operands(x, g).contiguous()
     x = x.contiguous()
     ci, d, h, wd = x.shape
@@ -797,7 +833,7 @@ def conv3d_cf_wgrad(x: torch.Tensor, g: torch.Tensor, kernel=None) -> torch.Tens
     lib = _library()
     if bf16 and kernel is None and wgrad_wg_ok(x, g):
         if co % 8 and ci % 8 == 0:
-            return conv3d_cf_wgrad(g, x).flip((0, 1, 2)).transpose(3, 4).contiguous()
+            return _wgrad_launch(g, x, None).flip((0, 1, 2)).transpose(3, 4).contiguous()
         xs, gs = wg_sources([x, g])
         w8 = xs.shape[3]
         plan = wgrad_wg_plan(ci, co, d, h, w8, _sm_count(dev.index))

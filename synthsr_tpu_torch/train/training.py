@@ -59,6 +59,7 @@ from ..synth.labels_to_image import build_generator
 from ..synth.sampling import make_gmm_sampler
 from ..utils.finite_guard import FiniteGuard, adam_init, gated_adam_step, guard_updates
 from ..utils.prefetch import PrefetchIterator
+from ..utils.profiling import span
 from .metrics import (assemble_prediction, build_seg_loss_fn, doubled_residual_indices,
                       regression_loss)
 
@@ -174,28 +175,38 @@ def make_train_step(model, generator, gmm_sampler, lr, lr_decay=0.0, metrics="l1
     are averaged over them (one flat all-reduce) before the gated Adam.
     The step takes its gradients with ``torch.autograd.grad``, which would
     not fire ``DistributedDataParallel``'s reducer hooks: the average is
-    explicit."""
+    explicit.
+
+    While the tracer of ``utils/profiling`` is on, each step is a
+    ``train.step`` span tiled by ``train.generate``, ``train.forward``,
+    ``train.backward`` (autograd and the all-reduce) and ``train.adam`` (the
+    gate, Adam, the BatchNorm statistics)."""
     params = list(model.parameters())
     bn_names = bn_layers(model)
     rank, _ = rank_and_size(group)
 
     def step(opt_state, gen, batch):
-        n = batch[0].shape[0]
-        gens = example_generators(gen, n, rank * n, batch[0].device)
-        outs = generate_batch(generator, gmm_sampler, gens, batch, use_real_image)
-        masks = draw_dropout_masks(model, gens)
-        loss, new_stats = forward_loss(
-            model, outs[0], outs[1], metrics, loss_cropping, residual_indices, compute_dtype,
-            masks=masks, group=group, remat=remat, seg_loss_fn=seg_loss_fn,
-            seg_target=outs[2] if seg_loss_fn is not None else None,
-            seg_rel_weight=seg_rel_weight)
-        grads = torch.autograd.grad(loss, params)
-        *grads, loss = all_reduce_mean_list([*grads, loss.detach()], group)
-        with torch.no_grad():
-            finite = torch.isfinite(loss)
-            opt_state = gated_adam_step(params, grads, opt_state, finite, lr, lr_decay)
-            write_bn_stats(model, bn_names, new_stats, finite)
-        return opt_state, loss.detach()
+        with span("train.step"):
+            with span("train.generate"):
+                n = batch[0].shape[0]
+                gens = example_generators(gen, n, rank * n, batch[0].device)
+                outs = generate_batch(generator, gmm_sampler, gens, batch, use_real_image)
+                masks = draw_dropout_masks(model, gens)
+            with span("train.forward"):
+                loss, new_stats = forward_loss(
+                    model, outs[0], outs[1], metrics, loss_cropping, residual_indices,
+                    compute_dtype, masks=masks, group=group, remat=remat,
+                    seg_loss_fn=seg_loss_fn,
+                    seg_target=outs[2] if seg_loss_fn is not None else None,
+                    seg_rel_weight=seg_rel_weight)
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, params)
+                *grads, loss = all_reduce_mean_list([*grads, loss.detach()], group)
+            with span("train.adam"), torch.no_grad():
+                finite = torch.isfinite(loss)
+                opt_state = gated_adam_step(params, grads, opt_state, finite, lr, lr_decay)
+                write_bn_stats(model, bn_names, new_stats, finite)
+            return opt_state, loss.detach()
 
     return step
 

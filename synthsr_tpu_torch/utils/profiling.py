@@ -8,7 +8,28 @@
 - :class:`StepTimer` keeps per-step wall-clock times, synchronising the CUDA
   device around each step when there is one, so a step's time includes its
   kernels; it appends each step to an optional jsonl log;
-- :func:`device_memory_stats` returns ``torch.cuda.memory_stats`` per device.
+- :func:`device_memory_stats` returns ``torch.cuda.memory_stats`` per device;
+- :func:`span` and :func:`count` are the program's own tracer: named host
+  intervals and counters placed where the work happens, off by default.
+
+The tracer.  :func:`tracing` turns it on for the process.  Off, ``span``
+returns one shared null context after a single check of the module flag
+``enabled``, and ``count`` returns after the same check: nothing is recorded
+and no profiler is called.  On, a span is a
+``torch.profiler.record_function(name)`` and reads ``time.perf_counter()``
+just before the range's entry and just before its exit, where the profiler
+stamps the range's two ends; so under :func:`trace` (or any active profiler)
+it is a ``user_annotation`` range of the same Chrome trace as the device's
+kernels and copies, whose launches it encloses, and its seconds are the
+range's.  Each thread keeps its own stack of open spans: a span's parent is
+the innermost open span of its thread.  Totals are kept per name (count,
+seconds, self seconds: the seconds not covered by child spans) and per
+counter; :func:`reset` zeroes them.  :func:`snapshot` returns them with a
+copy of each dict of counts a module gave to :func:`register` (the conv
+kernels' ``LAUNCHES``), which ``reset`` leaves to its module.  No per-span
+list is kept: the profiler's trace is the timeline.  The tracer adds no
+device synchronisation: a span is host time, and the device time of the
+work launched inside it comes from the trace.
 """
 
 from __future__ import annotations
@@ -16,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
 
 import torch
@@ -91,3 +113,101 @@ def device_memory_stats():
     if not torch.cuda.is_available():
         return {}
     return {f"cuda:{i}": torch.cuda.memory_stats(i) for i in range(torch.cuda.device_count())}
+
+
+# ---------------------------------------------------------------------------
+# the tracer
+# ---------------------------------------------------------------------------
+
+enabled = False  # read as ``profiling.enabled`` at each use; set by tracing()
+_clock = time.perf_counter
+_NULL = contextlib.nullcontext()
+_local = threading.local()
+_lock = threading.Lock()
+_spans: dict[str, list] = {}  # name -> [count, seconds, self seconds]
+_counters: dict[str, float] = {}
+_registered: dict[str, dict] = {}  # name -> a module's own counts
+
+
+class _Span:
+    __slots__ = ("name", "t0", "child_s", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.child_s = 0.0
+        stack.append(self)
+        self.rf = torch.profiler.record_function(self.name)
+        self.t0 = _clock()
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        dt = _clock() - self.t0
+        stack = _local.stack
+        stack.pop()
+        if stack:
+            stack[-1].child_s += dt
+        with _lock:
+            tot = _spans.get(self.name)
+            if tot is None:
+                tot = _spans[self.name] = [0, 0.0, 0.0]
+            tot[0] += 1
+            tot[1] += dt
+            tot[2] += dt - self.child_s
+        self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A named host interval: ``with span("predict.resample"): ...``.  Off,
+    the shared null context; on, recorded in the totals and as a profiler
+    range."""
+    if not enabled:
+        return _NULL
+    return _Span(name)
+
+
+def count(name: str, n=1):
+    """Add ``n`` to the counter ``name`` while tracing is on."""
+    if not enabled:
+        return
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def register(name: str, counts: dict):
+    """Have :func:`snapshot` copy ``counts``, a dict a module keeps and
+    zeroes itself, under ``name``."""
+    _registered[name] = counts
+
+
+def tracing(on: bool) -> bool:
+    """Turn the tracer on or off for the process; returns the previous state."""
+    global enabled
+    was, enabled = enabled, bool(on)
+    return was
+
+
+def reset():
+    """Zero the span totals and the counters (not the registered counts)."""
+    with _lock:
+        _spans.clear()
+        _counters.clear()
+
+
+def snapshot() -> dict:
+    """``{"spans": {name: {count, seconds, self_seconds}}, "counters": {name:
+    value}}`` since the last :func:`reset`, and a copy of each registered
+    dict of counts under its name (``"launches"``: ``ops/conv_cf.LAUNCHES``
+    as it stands)."""
+    with _lock:
+        spans = {name: {"count": c, "seconds": s, "self_seconds": ss}
+                 for name, (c, s, ss) in _spans.items()}
+        counters = dict(_counters)
+    return {"spans": spans, "counters": counters,
+            **{name: dict(counts) for name, counts in _registered.items()}}
