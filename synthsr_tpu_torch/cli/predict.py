@@ -2,15 +2,24 @@
 1 mm MP-RAGE.  The port of ``synthsr_tpu/cli/predict.py``.
 
 Same flags, file/directory batch semantics and ``_SynthSR`` output naming,
-same math: CT clip to [0, 80] HU, resample to 1 mm (on the device, as
-per-axis matrices), RAS alignment, min-max normalisation, centre zero-pad to
-a multiple of 32, flip-averaged TTA, output ``clip(255·(y0+y1)/2, 0, 128)``,
-unpad.
+same math: CT clip to [0, 80] HU, resample to 1 mm (as per-axis matrices),
+RAS alignment, min-max normalisation, centre zero-pad to a multiple of 32,
+flip-averaged TTA, output ``clip(255·(y0+y1)/2, 0, 128)``, unpad.  The raw
+scan is copied to the device once; everything up to the output's copy back
+runs there, with no host synchronisation, and gives the bits the same
+operations give in numpy.
 
 While the tracer of ``utils/profiling`` is on, each ``predict_volume`` is a
 ``predict.volume`` span tiled by ``predict.resample``, ``predict.align``,
 ``predict.normalise``, ``predict.pad``, ``predict.upload``,
-``predict.network`` and ``predict.output``.
+``predict.network`` and ``predict.output``.  The five stages of
+``prepare`` are host time to launch their device work (the device's share
+is in a profiler trace, under the stage's range): the raw scan's copy, the
+CT clip and the axis products; the swaps and flips; the min and max;
+the zeroed pad buffer and the normalised volume written into it;
+``predict.upload`` only hands the padded tensor over.  The counters
+``predict.h2d_bytes`` and ``predict.d2h_bytes`` add the bytes of the raw
+scan copied to the device and of the output copied back.
 
 The network runs on CUDA unless ``--cpu`` (or ``device="cpu"``) is given; a
 missing GPU raises.  ``--fast_inference`` (default on) runs the fast forward
@@ -30,14 +39,14 @@ import sys
 import numpy as np
 import torch
 
-from ..io.volume import align_volume_to_ref, load_volume, save_volume
+from ..io.volume import _ras_moves, load_volume, save_volume
 from ..models.unet import synthsr_unet
 from ..models.unet_cf import fast_unet_forward, flip_d_state_dict, pack_unet
 from ..models.weights import load_unet_weights
 from ..ops.host_matrices import resample_volume_matrices
 from ..ops.linops import apply_axis_ops
 from ..utils.misc import list_images_in_folder
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from ._pipeline import run_pipelined
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -169,30 +178,43 @@ class Predictor:
         return 0.5 * y0 + 0.5 * y1
 
     def prepare(self, im: np.ndarray, aff: np.ndarray):
-        """CT clip, device resample to 1 mm, RAS alignment, min-max
-        normalisation and centre pad to a multiple of 32.
+        """CT clip, resample to 1 mm, RAS alignment, min-max normalisation and
+        centre pad to a multiple of 32, on the device after one copy of the
+        raw scan, without waiting on it.
 
         Returns (x (1, 1, D, H, W) float32 on the device, crop slices, aff)."""
+        dev = self.device
         with span("predict.resample"):
             im = np.asarray(im, np.float32)
-            if self.ct:
-                im = np.clip(im, 0.0, 80.0)
             mats, _, aff = resample_volume_matrices(im.shape, aff, [1.0, 1.0, 1.0])
-            im = device_axis_ops(im, mats, self.device)
+            # pageable sources: non_blocking only drops the wait for the copy
+            mats = [torch.from_numpy(m).to(dev, non_blocking=True) for m in mats]
+            x = torch.from_numpy(im).to(dev, non_blocking=True)
+            count("predict.h2d_bytes", x.nbytes)
+            if self.ct:
+                x = torch.clamp(x, 0.0, 80.0)
+            x = apply_axis_ops(x, mats)
         with span("predict.align"):
-            im, aff2 = align_volume_to_ref(im, aff, aff_ref=np.eye(4), return_aff=True,
-                                           n_dims=3)
+            swaps, flips, aff2 = _ras_moves(aff, x.shape)
+            for a, b in swaps:
+                x = x.transpose(a, b)
+            if flips:
+                x = torch.flip(x, flips)
         with span("predict.normalise"):
-            im = im - np.min(im)
-            mx = np.max(im)
-            if mx > 0:
-                im = im / mx
+            lo, hi = torch.aminmax(x)
+            # max(x - lo) is hi - lo: rounding is monotone.  A 0-d device
+            # divisor keeps a true division (a CPU scalar becomes a multiply
+            # by its reciprocal on CUDA) and needs no sync.
+            top = hi - lo
+            top = torch.where(top > 0, top, 1.0)
         with span("predict.pad"):
-            padded, crop = pad_to_32(im.shape)
-            s = np.zeros((1, 1, *padded), np.float32)
-            s[(0, 0) + crop] = im
+            padded, crop = pad_to_32(x.shape)
+            s = torch.zeros((1, 1, *padded), dtype=torch.float32, device=dev)
+            inner = s[(0, 0) + crop]
+            torch.sub(x, lo, out=inner)
+            inner.div_(top)
         with span("predict.upload"):
-            x = torch.from_numpy(s).to(self.device)
+            x = s
         return x, crop, aff2
 
     def predict_volume(self, im: np.ndarray, aff: np.ndarray):
@@ -203,6 +225,7 @@ class Predictor:
                 y = self.network(x)
             with span("predict.output"):
                 pred = torch.clamp(255.0 * y, 0.0, 128.0)
+                count("predict.d2h_bytes", pred[0, 0].nbytes)
                 return pred[0, 0].cpu().numpy()[crop], aff2
 
     def predict_file(self, path_in: str, path_out: str):

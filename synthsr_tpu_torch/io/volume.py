@@ -114,31 +114,49 @@ def align_volume_to_ref(volume, aff, aff_ref=None, return_aff=False, n_dims=None
     """Axis-permute + flip a volume so its orientation matches ``aff_ref``
     (ref edit_volumes.py:609-654)."""
     new_volume = volume.copy() if return_copy else volume
-    aff_flo = np.array(aff, dtype=float, copy=True)
-    if aff_ref is None:
-        aff_ref = np.eye(4)
     if n_dims is None:
         n_dims, _ = get_dims(new_volume.shape)
-    ras_ref = get_ras_axes(aff_ref, n_dims=n_dims)
-    ras_flo = get_ras_axes(aff_flo, n_dims=n_dims)
-
-    aff_flo[:, ras_ref] = aff_flo[:, ras_flo]
-    for i in range(n_dims):
-        if ras_flo[i] != ras_ref[i]:
-            new_volume = np.swapaxes(new_volume, ras_flo[i], ras_ref[i])
-            j = int(np.where(ras_flo == ras_ref[i])[0][0])
-            ras_flo[j], ras_flo[i] = ras_flo[i], ras_flo[j]
-
-    dots = np.sum(aff_flo[:3, :3] * aff_ref[:3, :3], axis=0)
-    for i in range(n_dims):
-        if dots[i] < 0:
-            new_volume = np.flip(new_volume, axis=i)
-            aff_flo[:, i] = -aff_flo[:, i]
-            aff_flo[:3, 3] = aff_flo[:3, 3] - aff_flo[:3, i] * (new_volume.shape[i] - 1)
+    swaps, flips, aff_flo = _ras_moves(aff, new_volume.shape, aff_ref, n_dims)
+    for a, b in swaps:
+        new_volume = np.swapaxes(new_volume, a, b)
+    for i in flips:
+        new_volume = np.flip(new_volume, axis=i)
 
     if return_aff:
         return new_volume, aff_flo
     return new_volume
+
+
+def _ras_moves(aff, shape, aff_ref=None, n_dims=3):
+    """What :func:`align_volume_to_ref` does to a volume of ``shape``, from
+    the affines alone: (the axis swaps (a, b) in the order they apply, the
+    axes flipped after them, the new affine).  ``cli/predict.py`` applies
+    the same moves to a device tensor."""
+    aff_flo = np.array(aff, dtype=float, copy=True)
+    if aff_ref is None:
+        aff_ref = np.eye(4)
+    ras_ref = get_ras_axes(aff_ref, n_dims=n_dims)
+    ras_flo = get_ras_axes(aff_flo, n_dims=n_dims)
+
+    aff_flo[:, ras_ref] = aff_flo[:, ras_flo]
+    shape = list(shape)
+    swaps = []
+    for i in range(n_dims):
+        if ras_flo[i] != ras_ref[i]:
+            a, b = int(ras_flo[i]), int(ras_ref[i])
+            swaps.append((a, b))
+            shape[a], shape[b] = shape[b], shape[a]
+            j = int(np.where(ras_flo == ras_ref[i])[0][0])
+            ras_flo[j], ras_flo[i] = ras_flo[i], ras_flo[j]
+
+    dots = np.sum(aff_flo[:3, :3] * aff_ref[:3, :3], axis=0)
+    flips = []
+    for i in range(n_dims):
+        if dots[i] < 0:
+            flips.append(i)
+            aff_flo[:, i] = -aff_flo[:, i]
+            aff_flo[:3, 3] = aff_flo[:3, 3] - aff_flo[:3, i] * (shape[i] - 1)
+    return swaps, flips, aff_flo
 
 
 def resample_volume(volume, aff, new_vox_size, interpolation="linear", blur=True):

@@ -7,6 +7,7 @@ give equal results, and every public function has its original's
 signature."""
 
 import inspect
+import itertools
 import os
 import types
 
@@ -107,7 +108,9 @@ def case_align_volume_to_ref(m, tmp_path):
     rng = np.random.default_rng(1)
     vol = rng.normal(size=(7, 9, 11)).astype(np.float32)
     out = []
-    for perm, flips in (((1, 0, 2), (1, -1, 1)), ((2, 0, 1), (-1, -1, 1)), ((0, 1, 2), (1, 1, -1))):
+    # the 48 orientations of RAS: 3! axis orders by 2^3 flips
+    for perm, flips in itertools.product(itertools.permutations(range(3)),
+                                         itertools.product((1, -1), repeat=3)):
         aff = np.eye(4)
         aff[:3, :3] = np.eye(3)[:, list(perm)] * np.array(flips) * np.array([1.2, 0.9, 2.0])
         aff[:3, 3] = rng.normal(size=3) * 10

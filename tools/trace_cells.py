@@ -20,6 +20,10 @@ benchmark's entry (``benchmark/entries/``) is set up from the seed, then:
   innermost program span (``harness.breakdown`` on the program's ranges),
   and each span's perf_counter total against its ranges in the trace.
 
+For predict, the device ms (kernels, copies, fills) and the kernels launched
+under each stage of ``prepare``, a volume (the stages' host ms are among the
+spans), beside the bytes the program counted up and down a volume.
+
 Prints one JSON object a cell, and writes them all to ``--out`` if given.  It also
 times ``span`` and ``count`` off and on (ns a call, on the host).
 """
@@ -41,6 +45,7 @@ sys.path[:0] = [os.path.join(ROOT, "benchmark"), ROOT]
 import harness  # noqa: E402
 
 PREDICT_PREP = ("predict.align", "predict.normalise", "predict.pad", "predict.upload")
+PREPARE = ("predict.resample", *PREDICT_PREP)
 TRAIN_PHASES = ("train.generate", "train.forward", "train.backward", "train.adam")
 
 
@@ -162,6 +167,7 @@ def run(cell: str, seed: int, seconds: float, rounds: int, device="cuda", wl=Non
     memcpy_ms = lambda rng: 1e3 * sum(e[3] - e[2] for e in events
                                       if e[1] == "gpu_memcpy" and e[4] == rng) / k
     kernels = lambda rng: sum(1 for e in events if e[1] == "kernel" and e[4] == rng) / k
+    device_ms = lambda rng: 1e3 * sum(e[3] - e[2] for e in events if e[4] == rng) / k
     m = {}
     if "predict.volume" in sp:
         vols = sp["predict.volume"]["count"]
@@ -174,6 +180,10 @@ def run(cell: str, seed: int, seconds: float, rounds: int, device="cuda", wl=Non
         m["network_ms.predict (host)"] = per_unit(sp, ["predict.network"], vols)
         m["output_ms.predict (host)"] = per_unit(sp, ["predict.output"], vols)
         m["conv_calls_per_volume"] = ctr.get("conv.calls", 0) / vols
+        m["prepare_device_ms by stage"] = {n: device_ms(n) for n in PREPARE}
+        m["prepare_kernels by stage"] = {n: kernels(n) for n in PREPARE}
+        for c in ("predict.h2d_bytes", "predict.d2h_bytes"):
+            m[c + " per volume"] = ctr.get(c, 0) / vols
         units = vols
     else:
         steps = sp["train.step"]["count"]
