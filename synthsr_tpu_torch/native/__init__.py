@@ -76,8 +76,21 @@ def native_available() -> bool:
     return get_lib() is not None
 
 
+def _c_order(a: np.ndarray, block: int = 64) -> np.ndarray:
+    """``np.ascontiguousarray`` of an F-ordered array (a NIfTI file's order),
+    copied in blocks of its first and last axes: numpy's one strided pass
+    over a 160³ map is about 2.5 times slower."""
+    if a.flags.c_contiguous:
+        return a
+    out = np.empty(a.shape, a.dtype)
+    for i in range(0, a.shape[0], block):
+        for j in range(0, a.shape[-1], block):
+            out[i:i + block, ..., j:j + block] = a[i:i + block, ..., j:j + block]
+    return out
+
+
 def read_nifti_fast(path: str, dtype: str = "float32"):
-    """Fast NIfTI read -> (F-ordered array, affine, VolumeHeader), or None if
+    """Fast NIfTI read -> (C-ordered array, affine, VolumeHeader), or None if
     the native path can't handle this file (the caller reads it with numpy).
 
     dtype: 'float32' (scl_slope applied) or 'int32' (raw cast).
@@ -105,7 +118,7 @@ def read_nifti_fast(path: str, dtype: str = "float32"):
                          out_code)
     if got != n:
         return None
-    data = out.reshape(shape, order="F")
+    data = _c_order(out.reshape(shape, order="F"))
     aff = _nifti_affine(parsed)
     header = VolumeHeader(zooms=np.abs(np.asarray(parsed["pixdim"][1:4], np.float32)),
                           dtype=data.dtype, shape=shape)

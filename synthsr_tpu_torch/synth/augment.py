@@ -21,6 +21,7 @@ import torch
 
 from ..ops import interp, linops
 from ..utils.misc import get_mapping_lut
+from .device_constants import cached, constant
 from .sampling import bernoulli, draw_value, normal, randint, uniform
 
 
@@ -58,8 +59,9 @@ def sample_affine_matrix(gen, rotation_bounds=False, scaling_bounds=False,
     t_shear = eye
     if shearing_bounds is not False:
         sh = draw_value(gen, shearing_bounds, size=6, default_range=0.01)
-        t_shear = torch.ones(3, 3, device=dev)
-        t_shear[~torch.eye(3, dtype=torch.bool, device=dev)] = sh
+        one = torch.ones((), device=dev)
+        t_shear = torch.stack([one, sh[0], sh[1], sh[2], one, sh[3], sh[4], sh[5], one]) \
+            .reshape(3, 3)
     t_scale = eye
     if scaling_bounds is not False:
         t_scale = torch.diag(draw_value(gen, scaling_bounds, size=3, centre=1.0,
@@ -70,6 +72,21 @@ def sample_affine_matrix(gen, rotation_bounds=False, scaling_bounds=False,
     out = torch.eye(4, device=dev)
     out[:3, :3] = t_scale @ t_shear @ t_rot
     out[:3, 3] = trans
+    return out
+
+
+def invert_affine(m):
+    """The inverse of a (4, 4) affine ``[A t; 0 1]``: ``[A⁻¹ −A⁻¹t; 0 1]``,
+    with A⁻¹ the adjugate over the determinant (row i: the cross product of
+    the other two columns of A).  Device ops alone: ``torch.linalg.inv``
+    checks its result on the host, which waits on the card and cannot be
+    captured in a CUDA graph."""
+    a, t = m[:3, :3], m[:3, 3]
+    cof = torch.linalg.cross(torch.roll(a, -1, 1), torch.roll(a, -2, 1), dim=0)
+    inv = cof.T / (a[:, 0] * cof[:, 0]).sum()
+    out = torch.eye(4, dtype=m.dtype, device=m.device)
+    out[:3, :3] = inv
+    out[:3, 3] = -(inv @ t)
     return out
 
 
@@ -144,7 +161,7 @@ def spatial_deformation(vols, methods, crop_shape, crop_idx=None, affine=None, s
         flat = torch.stack([m.reshape(-1) for m in moved]
                            + [torch.ones(moved[0].numel(), device=dev)], 0)
         loc = (affine[:3].to(torch.float32) @ flat).T.reshape(*crop_shape, 3) \
-            + torch.tensor(centre, dtype=torch.float32, device=dev)
+            + constant(centre, torch.float32, dev)
     else:
         loc = torch.stack(mesh, -1) + svf_w
     return [interp.interpn(v.to(torch.float32), loc, method=m).to(v.dtype)
@@ -154,8 +171,7 @@ def spatial_deformation(vols, methods, crop_shape, crop_idx=None, affine=None, s
 def sample_crop(gen, spatial, crop_shape):
     """The offset of :func:`random_crop`: (3,) int64, floor(U(0, 1)·(dim -
     crop)) per axis, as JAX's ``augment.random_crop`` draws it."""
-    room = torch.tensor([s - c for s, c in zip(spatial, crop_shape)], dtype=torch.float32,
-                        device=gen.device)
+    room = constant([s - c for s, c in zip(spatial, crop_shape)], torch.float32, gen.device)
     return torch.floor(uniform(gen, (3,)) * room).long()
 
 
@@ -201,7 +217,7 @@ def random_flip(vols, flips, axes, swap_flags, swap_lut=None):
     for v, swap in zip(vols, swap_flags):
         out = v
         if swap and swap_lut is not None:
-            lut = torch.as_tensor(np.asarray(swap_lut), device=v.device)
+            lut = constant(swap_lut, device=v.device)
             swapped = lut[torch.clamp(v.to(torch.int64), 0, len(lut) - 1)].to(v.dtype)
             out = torch.where(odd, swapped, out)
         for i, ax in enumerate(axes):
@@ -232,7 +248,9 @@ def sample_conditional_gmm(labels, means, stds, generation_labels, noise):
     labels = labels.to(torch.int64)
     if labels.dim() == 4:
         labels = labels[..., 0]
-    lut = gmm_label_index(generation_labels, labels.device)
+    gen_labels = np.asarray(generation_labels, np.int64)
+    lut = cached(("gmm_label_index", gen_labels.tobytes(), labels.device),
+                 lambda: gmm_label_index(gen_labels, labels.device))
     inside = (labels >= 0) & (labels < len(lut))
     rows = torch.where(inside, lut[torch.clamp(labels, 0, len(lut) - 1)],
                        torch.zeros((), dtype=torch.int64, device=labels.device))
@@ -251,7 +269,7 @@ def sample_resolution(gen, min_resolution, max_res_iso=None, max_res_aniso=None,
     With ``return_thickness=False`` only the resolution is returned, but the
     thickness is still drawn: JAX's function splits its key for it either
     way, and here skipping the draw would shift every later draw of ``gen``."""
-    min_res = torch.as_tensor(np.asarray(min_resolution, np.float32), device=gen.device)
+    min_res = constant(np.asarray(min_resolution, np.float32), device=gen.device)
     max_iso = None if max_res_iso is None else np.asarray(max_res_iso, np.float32)
     max_aniso = None if max_res_aniso is None else np.asarray(max_res_aniso, np.float32)
     if max_iso is not None and np.array_equal(np.asarray(min_resolution, np.float32), max_iso):
@@ -260,7 +278,7 @@ def sample_resolution(gen, min_resolution, max_res_iso=None, max_res_aniso=None,
                                                 max_aniso):
         max_aniso = None
     mask = torch.arange(3, device=gen.device) == randint(gen, 0, 3)
-    as_t = (lambda a: torch.as_tensor(a, device=gen.device))
+    as_t = (lambda a: constant(a, device=gen.device))
     if max_iso is None and max_aniso is None:
         res = min_res
     elif max_aniso is None:
@@ -291,7 +309,7 @@ def gaussian_blur(x, sigma, factors=None, blur_range=None, max_sigma=None):
     """Separable blur; with ``blur_range`` (≠ 1) the sigma is multiplied by the
     drawn ``factors``.  ``max_sigma`` bounds a drawn sigma (it sizes the
     window); it defaults to ``sigma``."""
-    sig = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+    sig = constant(sigma, torch.float32, x.device)
     max_sigma = np.asarray(sigma if max_sigma is None else max_sigma, np.float32)
     if blur_range is not None and blur_range != 1:
         if factors is None:
@@ -400,22 +418,29 @@ def resample_tensor(x, resample_shape, interp_method="linear", subsample_res=Non
     if not build_reliability_map:
         return out
     if downsample_shape != spatial:
-        factors = np.array(resample_shape, np.float64) / np.array(downsample_shape)
-        rel_maps = []
-        for d in range(3):
-            loc_float = np.arange(0, resample_shape[d], factors[d])
-            loc_floor = np.int32(np.floor(loc_float))
-            loc_ceil = np.int32(np.clip(loc_floor + 1, 0, resample_shape[d] - 1))
-            tmp = np.zeros(resample_shape[d], np.float32)
-            tmp[loc_floor] = 1 - (loc_float - loc_floor)
-            tmp[loc_ceil] = tmp[loc_ceil] + (loc_float - loc_floor)
-            rel_maps.append(tmp)
-        rel = rel_maps[0][:, None, None] * rel_maps[1][None, :, None] * rel_maps[2][None, None, :]
-        mask = torch.as_tensor(rel, dtype=torch.float32, device=x.device)[..., None] \
-            .expand(*rel.shape, x.shape[-1]).contiguous()
+        rel = cached(("reliability_map", tuple(resample_shape), tuple(downsample_shape), x.device),
+                     lambda: _reliability_map(resample_shape, downsample_shape, x.device))
+        mask = rel[..., None].expand(*rel.shape, x.shape[-1]).contiguous()
     else:
         mask = torch.ones_like(out)
     return out, mask
+
+
+def _reliability_map(resample_shape, downsample_shape, device=None):
+    """(X, Y, Z) float32 of :func:`resample_tensor`: the separable weights of
+    the acquired slices, 1 on a slice and falling linearly between them."""
+    factors = np.array(resample_shape, np.float64) / np.array(downsample_shape)
+    rel_maps = []
+    for d in range(3):
+        loc_float = np.arange(0, resample_shape[d], factors[d])
+        loc_floor = np.int32(np.floor(loc_float))
+        loc_ceil = np.int32(np.clip(loc_floor + 1, 0, resample_shape[d] - 1))
+        tmp = np.zeros(resample_shape[d], np.float32)
+        tmp[loc_floor] = 1 - (loc_float - loc_floor)
+        tmp[loc_ceil] = tmp[loc_ceil] + (loc_float - loc_floor)
+        rel_maps.append(tmp)
+    rel = rel_maps[0][:, None, None] * rel_maps[1][None, :, None] * rel_maps[2][None, None, :]
+    return torch.tensor(rel, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------

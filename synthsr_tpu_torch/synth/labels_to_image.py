@@ -8,6 +8,19 @@ every random value of one example from a ``torch.Generator`` into a dict,
 draws (so the tests replay the JAX package's draws through it), and calling it
 does both.  Tensors are channels-last (X, Y, Z, C), as in the JAX package.
 
+On a CUDA device a call replays ``apply`` as a CUDA graph.  ``apply`` draws
+nothing and its shapes follow from the shapes of its inputs, so for one
+signature of inputs (:meth:`Generator.graph_key`) it is a fixed chain of
+small kernels, about 2,400 at tutorial 7's shapes.  The first call of a signature runs
+``apply`` once on a side stream, to create what it creates lazily (the
+host constants of ``device_constants``, cuBLAS's workspace), then captures
+it into static input and output buffers; each later call copies its draws
+and inputs into those buffers, replays, and returns copies of the outputs.
+The ``MAX_GRAPHS`` most recently used signatures keep their graphs.  While
+the tracer of ``utils/profiling`` is on, the counters ``generator.captures``,
+``generator.replays`` and ``generator.eager`` (a call that ran ``apply``
+directly: on the CPU, or with inputs that need autograd) count the calls.
+
 The registration-error warps are joint trilinear gathers: the JAX package's
 ``exact_warp=True`` semantics.  Its default gather-free shear warp
 (``ops/shear_warp.py``) is a TPU deviation and is not ported.
@@ -15,6 +28,7 @@ The registration-error warps are joint trilinear gathers: the JAX package's
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, List, Optional, Sequence
 
@@ -26,7 +40,9 @@ from ..ops import interp
 from ..ops.blur import blurring_sigma_for_downsampling, blurring_sigma_np
 from ..utils.misc import (find_closest_number_divisible_by_m, reformat_to_list,
                           reformat_to_n_channels_array)
-from . import augment
+from ..utils.profiling import count
+from . import augment, device_constants
+from .device_constants import constant
 from .sampling import normal
 
 
@@ -190,6 +206,7 @@ class Generator:
     def __init__(self, cfg: GenerationConfig, return_labels: bool = False):
         self.cfg = cfg.resolve()
         self.return_labels = return_labels
+        self._graphs: "collections.OrderedDict[tuple, _Replay]" = collections.OrderedDict()
 
     def _sim_err(self, i):
         cfg = self.cfg
@@ -283,8 +300,9 @@ class Generator:
             if cfg.randomise_rc[i]:  # acquisition simulation (:214-228)
                 resolution, blur_res = draws[f"res_{i}"], draws[f"thick_{i}"]
                 max_res = np.array([cfg.max_res_iso] * 3, np.float32)
-                sigma = blurring_sigma_for_downsampling(cfg.atlas_res3, resolution,
-                                                        mult_coef=0.42, thickness=blur_res)
+                sigma = blurring_sigma_for_downsampling(
+                    constant(cfg.atlas_res3, torch.float32, channel.device), resolution,
+                    mult_coef=0.42, thickness=blur_res)
                 channel = augment.gaussian_blur(channel, sigma, factors, cfg.blur_range,
                                                 max_sigma=0.75 * max_res / cfg.atlas_res3)
                 channel, rel_map = augment.mimic_acquisition(
@@ -302,7 +320,7 @@ class Generator:
                     channel, rel_map = augment.resample_tensor(channel, cfg.out_shape,
                                                                build_reliability_map=True)
             if sim_err:  # inverse with error (:231-238)
-                t_inv = draws[f"t_err_{i}"] @ torch.linalg.inv(draws[f"t_fwd_{i}"])
+                t_inv = draws[f"t_err_{i}"] @ augment.invert_affine(draws[f"t_fwd_{i}"])
                 shift = interp.affine_to_shift(t_inv, channel.shape[:3])
                 channel = interp.transform(channel, shift)
                 rel_map = interp.transform(rel_map, shift)
@@ -321,8 +339,94 @@ class Generator:
         out = (image_out.to(torch.float32), target.to(torch.float32))
         return out + (labels,) if self.return_labels else out
 
+    def graph_key(self, draws, labels, means, stds, real_image=None) -> tuple:
+        """What a captured ``apply`` depends on beyond its inputs' values: the
+        devices, shapes and dtypes of ``labels``, ``means``, ``stds`` and
+        ``real_image``, the draws' keys, shapes, dtypes and Nones,
+        ``return_labels``, and an ``apply`` set on the instance."""
+        return (_signature((draws, labels, means, stds, real_image)), self.return_labels,
+                self.__dict__.get("apply"))
+
     def __call__(self, gen, labels, means, stds, real_image=None):
-        return self.apply(self.sample(gen), labels, means, stds, real_image)
+        args = (self.sample(gen), labels, means, stds, real_image)
+        if labels.device.type != "cuda" or (torch.is_grad_enabled() and any(
+                t.requires_grad for t in _leaves(args))):
+            count("generator.eager")
+            return self.apply(*args)
+        key = self.graph_key(*args)
+        replay = self._graphs.get(key)
+        if replay is None:
+            replay = _Replay(self.apply, args)
+            self._graphs[key] = replay
+            while len(self._graphs) > MAX_GRAPHS:
+                self._graphs.popitem(last=False)
+            count("generator.captures")
+        else:
+            self._graphs.move_to_end(key)
+            replay.load(args)
+            count("generator.replays")
+        return replay.run()
+
+
+MAX_GRAPHS = 4
+
+
+def _signature(tree):
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype, tree.device)
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, _signature(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__,) + tuple(_signature(v) for v in tree)
+    return tree
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _cloned(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_cloned(v) for v in tree)
+    return tree
+
+
+class _Replay:
+    """``apply`` captured as a CUDA graph on copies of one call's arguments:
+    the graph, its static inputs and outputs, and the device constants it
+    reads."""
+
+    def __init__(self, apply, args):
+        dev = args[1].device
+        static = _cloned(args)
+        self.inputs = _leaves(static)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.no_grad(), device_constants.held() as self.constants:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                apply(*static)
+            with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                self.outputs = apply(*static)
+            torch.cuda.current_stream().wait_stream(side)
+
+    def load(self, args):
+        for s, t in zip(self.inputs, _leaves(args)):
+            s.copy_(t)
+
+    def run(self) -> tuple:
+        self.graph.replay()
+        return tuple(o.clone() for o in self.outputs)
 
 
 def build_generator(cfg: GenerationConfig, return_labels: bool = False) -> Generator:

@@ -62,7 +62,7 @@ def build_model_inputs(path_label_maps, n_labels, prior_means, prior_stds,
         for pos, idx in enumerate(indices):
             is_local = lo <= pos < lo + local_bs
             if is_local:
-                lab = load_volume(path_label_maps[idx], dtype="int", aff_ref=np.eye(4))
+                lab = load_volume(path_label_maps[idx], dtype="int32", aff_ref=np.eye(4))
                 list_label_maps.append(lab[None, ..., None])
                 if path_images is not None:
                     im = load_volume(path_images[idx], dtype="float", aff_ref=np.eye(4))
@@ -102,7 +102,7 @@ def build_model_inputs(path_label_maps, n_labels, prior_means, prior_stds,
                 list_means.append(means)
                 list_stds.append(stds)
 
-        inputs = [np.concatenate(list_label_maps, 0).astype(np.int32)]
+        inputs = [np.concatenate(list_label_maps, 0).astype(np.int32, copy=False)]
         if include_gmm_params:
             inputs += [np.concatenate(list_means, 0).astype(np.float32),
                        np.concatenate(list_stds, 0).astype(np.float32)]

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..utils.misc import load_array_if_path
+from .device_constants import constant
 
 _NUMERIC = (int, float, np.integer, np.floating)
 
@@ -68,7 +69,7 @@ def draw_value(gen: torch.Generator, hyperparameter, size=1, distribution="unifo
     if hp is None:
         return None
     n_mod = hp.shape[0] // 2
-    blocks = torch.as_tensor(hp, device=gen.device).reshape(n_mod, 2, hp.shape[1])
+    blocks = constant(hp, device=gen.device).reshape(n_mod, 2, hp.shape[1])
     block = blocks[randint(gen, 0, n_mod)] if n_mod > 1 else blocks[0]
     if distribution == "uniform":
         value = uniform(gen, (hp.shape[1],), block[0], block[1])
@@ -107,7 +108,7 @@ def make_gmm_sampler(n_labels, prior_means, prior_stds, prior_distributions="nor
         return arr
 
     def sample(gen: torch.Generator):
-        classes = torch.as_tensor(generation_classes, device=gen.device)
+        classes = constant(generation_classes, device=gen.device)
         means, stds = [], []
         for channel in range(n_channels):
             m = draw_value(gen, channel_block(prior_means, channel), n_classes,

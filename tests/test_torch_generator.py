@@ -490,6 +490,169 @@ def test_generator_matches_jax(case):
             assert o.shape == v.shape and o.dtype == v.dtype, k
 
 
+# ---------------------------------------------------------------------------
+# what the CUDA graph of Generator.__call__ rests on, on the CPU
+# ---------------------------------------------------------------------------
+
+def _tutorial7_inputs(seed=14):
+    """GENERATOR_CASES' tutorial-7 generator with a label map, GMM parameters
+    and a GMM sampler."""
+    kw = dict(GENERATOR_CASES["tutorial7"], generation_labels=_SIDED, n_neutral_labels=2,
+              atlas_res=[1.0, 1.0, 1.0], flipping=True, aff=np.eye(4))
+    generator = l2i.build_generator(l2i.GenerationConfig(**kw))
+    rng = np.random.default_rng(seed)
+    lab = np.zeros(kw["labels_shape"], np.int32)
+    inner = tuple(slice(3, s - 3) for s in lab.shape)
+    lab[inner] = rng.choice(_SIDED[1:], size=lab[inner].shape)
+    n_c = generator.cfg.n_channels
+    means = torch.from_numpy(rng.uniform(10, 200, (len(_SIDED), n_c)).astype(np.float32))
+    stds = torch.from_numpy(rng.uniform(1, 10, (len(_SIDED), n_c)).astype(np.float32))
+    sampler = sampling.make_gmm_sampler(len(_SIDED), None, None, n_channels=n_c)
+    return generator, _t(lab)[..., None], means, stds, sampler
+
+
+def test_invert_affine_matches_linalg_inv():
+    """The closed-form inverse of the registration-error matrix against
+    ``torch.linalg.inv`` on seeded draws of ``sample_affine_matrix``: equal
+    to float32 rounding, and no further from the float64 inverse."""
+    gen = torch.Generator().manual_seed(3)
+    for kw in (dict(rotation_bounds=5, translation_bounds=5),
+               dict(rotation_bounds=15, scaling_bounds=0.15, shearing_bounds=0.012,
+                    translation_bounds=5)):
+        for _ in range(50):
+            m = augment.sample_affine_matrix(gen, **kw)
+            got, want = augment.invert_affine(m), torch.linalg.inv(m)
+            torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
+            exact = torch.linalg.inv(m.double())
+            assert (got.double() - exact).abs().max() <= 2 * (want.double() - exact).abs().max() \
+                + 1e-6
+            assert torch.equal(got[3], torch.tensor([0.0, 0.0, 0.0, 1.0]))
+
+
+def test_host_constants_are_built_once():
+    """``device_constants.constant`` gives one tensor per value and dtype,
+    equal to ``torch.as_tensor``, and passes tensors through; the reliability
+    map of ``resample_tensor`` is built once, equal to the per-call numpy
+    code it replaced, restated here."""
+    from synthsr_tpu_torch.synth import device_constants
+
+    a = device_constants.constant([0.5, 0.25, 0.125], torch.float32)
+    assert device_constants.constant(np.array([0.5, 0.25, 0.125]), torch.float32) is a
+    torch.testing.assert_close(a, torch.as_tensor([0.5, 0.25, 0.125], dtype=torch.float32),
+                               rtol=0, atol=0)
+    assert device_constants.constant([0.5, 0.25, 0.126], torch.float32) is not a
+    assert device_constants.constant([0.5, 0.25, 0.125], torch.float64) is not a
+    lut = np.array([0, 3, 2, 1], np.int64)
+    c = device_constants.constant(lut)
+    assert c.dtype == torch.int64 and c.tolist() == [0, 3, 2, 1]
+    lut[1] = 7  # the cache holds a copy, not the caller's array
+    assert device_constants.constant(np.array([0, 3, 2, 1])).tolist() == [0, 3, 2, 1]
+    t = torch.arange(3.0)
+    assert device_constants.constant(t) is t
+
+    def per_call_map(resample_shape, downsample_shape):
+        factors = np.array(resample_shape, np.float64) / np.array(downsample_shape)
+        rel_maps = []
+        for d in range(3):
+            loc_float = np.arange(0, resample_shape[d], factors[d])
+            loc_floor = np.int32(np.floor(loc_float))
+            loc_ceil = np.int32(np.clip(loc_floor + 1, 0, resample_shape[d] - 1))
+            tmp = np.zeros(resample_shape[d], np.float32)
+            tmp[loc_floor] = 1 - (loc_float - loc_floor)
+            tmp[loc_ceil] = tmp[loc_ceil] + (loc_float - loc_floor)
+            rel_maps.append(tmp)
+        return rel_maps[0][:, None, None] * rel_maps[1][None, :, None] \
+            * rel_maps[2][None, None, :]
+
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(16, 18, 20, 2)).astype(np.float32))
+    masks = [augment.resample_tensor(x, [16, 18, 20], "linear", [1.0, 3.0, 2.0],
+                                     [1.0, 1.0, 1.0], build_reliability_map=True)[1]
+             for _ in range(2)]
+    want = np.broadcast_to(per_call_map([16, 18, 20], [16, 6, 10])[..., None], (16, 18, 20, 2))
+    for m in masks:
+        np.testing.assert_array_equal(m.numpy(), want)
+    assert masks[0] is not masks[1]  # each call's mask is its own tensor
+    key = ("reliability_map", (16, 18, 20), (16, 6, 10), x.device)
+    built = device_constants.cached(key, lambda: pytest.fail("the map was built again"))
+    np.testing.assert_array_equal(built.numpy(), want[..., 0])
+
+
+def test_generator_builds_no_host_constant_after_its_first_call(monkeypatch):
+    """After one ``generate_batch``, the next (the GMM sampler, ``sample``
+    and ``apply``) builds no tensor from host data and calls no
+    ``torch.linalg`` inverse: on a card each would wait on the card
+    (``inv`` checks its result on the host), and a CUDA graph could not
+    capture it."""
+    from synthsr_tpu_torch.train.training import example_generators, generate_batch
+
+    generator, lab, means, stds, sampler = _tutorial7_inputs()
+    batch = (lab[None].expand(2, *lab.shape).contiguous(),)
+    step_gen = torch.Generator().manual_seed(0)
+    generate_batch(generator, sampler, example_generators(step_gen, 2), batch)
+    made = []
+
+    def spy(fn):
+        def from_host(data, *args, **kwargs):
+            if not isinstance(data, torch.Tensor):
+                made.append(np.shape(data))
+            return fn(data, *args, **kwargs)
+        return from_host
+
+    monkeypatch.setattr(torch, "tensor", spy(torch.tensor))
+    monkeypatch.setattr(torch, "as_tensor", spy(torch.as_tensor))
+    monkeypatch.setattr(torch.linalg, "inv", lambda *a, **k: made.append("inv"))
+    monkeypatch.setattr(torch.linalg, "inv_ex", lambda *a, **k: made.append("inv_ex"))
+    out = generate_batch(generator, sampler, example_generators(step_gen, 2), batch)
+    assert made == []
+    assert out[0].shape[0] == 2
+
+
+def test_graph_key():
+    """Equal for equal signatures (two draws of one generator), different
+    when a shape, a dtype, a draw's key, ``return_labels`` or an instance
+    ``apply`` changes."""
+    generator, lab, means, stds, _ = _tutorial7_inputs()
+    d1 = generator.sample(torch.Generator().manual_seed(1))
+    d2 = generator.sample(torch.Generator().manual_seed(2))
+    key = generator.graph_key(d1, lab, means, stds)
+    assert generator.graph_key(d2, lab, means, stds) == key
+    assert generator.graph_key(dict(reversed(list(d2.items()))), lab, means, stds) == key
+    assert generator.graph_key(d1, lab[1:], means, stds) != key
+    assert generator.graph_key(d1, lab.to(torch.int64), means, stds) != key
+    assert generator.graph_key(d1, lab, means.double(), stds) != key
+    assert generator.graph_key(d1, lab, means[:, :2], stds) != key
+    assert generator.graph_key({k: v for k, v in d1.items() if k != "flip"}, lab, means,
+                               stds) != key
+    assert generator.graph_key(dict(d1, bias_1=None), lab, means, stds) != key
+    assert generator.graph_key(d1, lab, means, stds, lab.float()) != key
+    generator.return_labels = True
+    assert generator.graph_key(d1, lab, means, stds) != key
+    generator.return_labels = False
+    generator.apply = lambda *args: generator.__class__.apply(generator, *args)
+    assert generator.graph_key(d1, lab, means, stds) != key
+
+
+def test_call_on_the_cpu_is_apply_of_sample():
+    """On the CPU a call is ``apply(sample(gen), ...)``, bit for bit, and
+    counts as eager."""
+    from synthsr_tpu_torch.utils import profiling
+
+    generator, lab, means, stds, _ = _tutorial7_inputs()
+    was = profiling.tracing(True)
+    profiling.reset()
+    try:
+        got = generator(torch.Generator().manual_seed(4), lab, means, stds)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.tracing(was)
+    want = generator.apply(generator.sample(torch.Generator().manual_seed(4)), lab, means, stds)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert counters.get("generator.eager") == 1
+    assert "generator.captures" not in counters and "generator.replays" not in counters
+
+
 def test_brain_generator_facade(tmp_path):
     """The host facade on label maps from disk (tests/test_generator.py:37,90):
     shapes, ranges, determinism per seed and a stream that advances."""

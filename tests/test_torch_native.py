@@ -51,6 +51,19 @@ def test_native_bit_equal_to_numpy_path(tmp_path, ext, dtype):
                                       jax_read_nifti_fast(p, dtype)[0])
 
 
+@pytest.mark.parametrize("shape", [(130, 70, 150), (66, 5, 129, 2), (200,), (1, 1, 65)])
+def test_native_read_is_c_ordered(tmp_path, shape):
+    """The loader hands numpy's order over, copied from the file's in blocks
+    of the first and last axes: equal to the numpy path, C-contiguous, at
+    shapes that do not divide into blocks."""
+    vol = np.random.default_rng(1).integers(0, 60, shape).astype(np.int32)
+    p = str(tmp_path / "v.nii.gz")
+    save_volume(vol, np.eye(4), None, p)
+    got = read_nifti_fast(p, "int32")[0]
+    assert got.flags.c_contiguous
+    np.testing.assert_array_equal(got, load_volume(p, squeeze=False, dtype="int32", fast=False))
+
+
 def test_native_float_with_scaling(tmp_path):
     data = np.random.default_rng(0).integers(0, 50, (12, 13, 14)).astype(np.int16)
     out = read_nifti_fast(_scaled(tmp_path, "scl.nii", data, 2.0, 3.0), "float32")

@@ -22,7 +22,9 @@ benchmark's entry (``benchmark/entries/``) is set up from the seed, then:
 
 For predict, the device ms (kernels, copies, fills) and the kernels launched
 under each stage of ``prepare``, a volume (the stages' host ms are among the
-spans), beside the bytes the program counted up and down a volume.
+spans), beside the bytes the program counted up and down a volume.  For
+train, ``generator_graph_hit.train``: the share of the generator's calls in
+the traced window that replayed its CUDA graph.
 
 Prints one JSON object a cell, and writes them all to ``--out`` if given.  It also
 times ``span`` and ``count`` off and on (ns a call, on the host).
@@ -190,6 +192,8 @@ def run(cell: str, seed: int, seconds: float, rounds: int, device="cuda", wl=Non
         for name in ("forward", "backward", "adam"):
             m[f"{name}_ms.train"] = per_unit(sp, [f"train.{name}"], steps)
         m["generator_launches.train"] = kernels("train.generate")
+        calls = sum(ctr.get(f"generator.{c}", 0) for c in ("captures", "replays", "eager"))
+        m["generator_graph_hit.train"] = ctr.get("generator.replays", 0) / calls if calls else None
         m["adam_launches.train"] = kernels("train.adam")
         m["conv_packs.train"] = ctr.get("conv.packs", 0) / steps
         m["generate_ms.train (host)"] = per_unit(sp, ["train.generate"], steps)
